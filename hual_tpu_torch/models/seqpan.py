@@ -1,0 +1,127 @@
+"""SeqPAN, deterministic forward (counterpart of ``hual_tpu/models/seqpan.py``).
+
+Text/video encoders -> shared pos-emb + conv block -> N x dual attention
+(one block per layer, both directions) -> CQ fusion -> matching head (+ the
+label-embedding orthogonality penalty) -> conditioned span predictor ->
+span decode.  ``span_decode="pallas"`` decodes with the Hopper kernel
+(``ops/kernels/span_decode.py``), ``"xla"`` with the plain PyTorch decode.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from hual_tpu_torch.config import Config
+from hual_tpu_torch.models.initializers import orthogonal
+from hual_tpu_torch.models.layers import (CQAttention, CQConcat, Conv1D,
+                                          LayerNorm, MatchingHead)
+from hual_tpu_torch.models.modules import (CharEmbedding, ConditionedPredictor,
+                                           ConvBlock, DualAttnBlock,
+                                           PositionalEmbedding, WordEmbedding)
+from hual_tpu_torch.ops import decode
+from hual_tpu_torch.ops.kernels import span_decode as span_decode_kernel
+from hual_tpu_torch.ops.masking import sequence_mask
+
+
+class SeqPAN(nn.Module):
+    def __init__(self, vdim: int = 1024, dim: int = 128, num_heads: int = 8,
+                 attn_layer: int = 2, max_vlen: int = 64, word_dim: int = 300,
+                 char_dim: int = 50, num_chars: int = 100, tau: float = 0.3,
+                 use_gumbel: bool = False, span_decode: str = "xla",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if span_decode not in ("xla", "pallas"):
+            raise ValueError(f"span_decode must be 'xla' or 'pallas', "
+                             f"got {span_decode!r}")
+        self.max_vlen, self.attn_layer = max_vlen, attn_layer
+        self.span_decode = span_decode
+        self.word_embs = WordEmbedding(word_dim)
+        self.char_embs = CharEmbedding(num_chars, char_dim)
+        self.query_conv1d = Conv1D(word_dim + self.char_embs.out_dim, dim, True)
+        self.q_layer_norm = LayerNorm(dim)
+        self.video_conv1d = Conv1D(vdim, dim, True)
+        self.v_layer_norm = LayerNorm(dim)
+        self.pos_emb = PositionalEmbedding(max_vlen, dim)
+        self.conv_block = ConvBlock(dim)
+        for i in range(attn_layer):
+            self.add_module(f"d_attn_{i}", DualAttnBlock(dim, num_heads))
+        self.q2v_attn = CQAttention(dim)
+        self.v2q_attn = CQAttention(dim)
+        self.cq_cat = CQConcat(dim)
+        self.matching_head = MatchingHead(dim, 4, tau, use_gumbel)
+        self.label_emb = nn.Parameter(torch.empty(4, dim))
+        self.predictor = ConditionedPredictor(dim, num_heads, max_vlen)
+        self.reset_parameters(generator)
+
+    @classmethod
+    def from_config(cls, config: Config,
+                    generator: Optional[torch.Generator] = None) -> "SeqPAN":
+        m = config.model
+        return cls(vdim=m.vdim, dim=m.dim, num_heads=m.num_heads,
+                   attn_layer=m.attn_layer, max_vlen=m.max_vlen,
+                   word_dim=m.word_dim, char_dim=m.char_dim,
+                   num_chars=m.num_chars, tau=config.loss.tau,
+                   use_gumbel=not config.loss.no_gumbel,
+                   span_decode=m.span_decode, generator=generator)
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        """Draw every weight from ``generator`` (a fresh seed-0 generator if
+        None), module by module in registration order."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        for module in self.modules():
+            if module is not self and hasattr(module, "reset_parameters"):
+                module.reset_parameters(generator)
+        with torch.no_grad():
+            self.label_emb.copy_(orthogonal((4, self.label_emb.shape[1]),
+                                            generator))
+
+    def forward(self, batch: dict[str, torch.Tensor],
+                word_vectors: torch.Tensor,
+                match_labels: Optional[torch.Tensor] = None
+                ) -> dict[str, torch.Tensor]:
+        v_mask = sequence_mask(batch["video_seq_len"], self.max_vlen)
+        q_mask = (batch["word_ids"] != 0).to(torch.int32)
+
+        qfeats = torch.cat([self.word_embs(batch["word_ids"], word_vectors),
+                            self.char_embs(batch["char_ids"])], dim=-1)
+        qfeats = self.q_layer_norm(self.query_conv1d(qfeats))
+        vfeats = self.v_layer_norm(self.video_conv1d(batch["video_features"]))
+
+        vfeats = self.conv_block(self.pos_emb(vfeats))
+        qfeats = self.conv_block(self.pos_emb(qfeats))
+
+        for i in range(self.attn_layer):
+            blk = getattr(self, f"d_attn_{i}")
+            vfeats, qfeats = (blk(vfeats, qfeats, v_mask, q_mask),
+                              blk(qfeats, vfeats, q_mask, v_mask))
+
+        q2v_feats, _ = self.q2v_attn(vfeats, qfeats, v_mask, q_mask)
+        v2q_feats, _ = self.v2q_attn(qfeats, vfeats, q_mask, v_mask)
+        fuse_feats = self.cq_cat(q2v_feats, v2q_feats, q_mask)
+
+        labels = match_labels if match_labels is not None else torch.zeros(
+            fuse_feats.shape[:2], dtype=torch.int32, device=fuse_feats.device)
+        match_loss, match_scores = self.matching_head(fuse_feats, labels,
+                                                      v_mask)
+        eye = torch.eye(4, device=self.label_emb.device)
+        ortho = self.label_emb @ self.label_emb.T * (1.0 - eye)
+        match_loss = match_loss + ortho.square().sum().sqrt()
+
+        soft_label_embs = match_scores @ self.label_emb
+        outputs = (fuse_feats + soft_label_embs) * v_mask[:, :, None]
+        start_logits, end_logits = self.predictor(outputs, v_mask)
+
+        decoder = (span_decode_kernel.span_decode
+                   if self.span_decode == "pallas" else decode.span_decode)
+        start_index, end_index = decoder(start_logits, end_logits, v_mask)
+        return {
+            "v_mask": v_mask, "q_mask": q_mask,
+            "q2v_feats": q2v_feats, "v2q_feats": v2q_feats,
+            "match_loss": match_loss, "match_scores": match_scores,
+            "start_logits": start_logits, "end_logits": end_logits,
+            "start_index": start_index, "end_index": end_index,
+        }
