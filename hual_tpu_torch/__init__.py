@@ -3,5 +3,6 @@
 The JAX package ``hual_tpu`` stays beside it as the reference.  This package
 imports neither it nor JAX.  Ported so far: the serving path
 (``serve.Predictor``) with the SeqPAN deterministic forward and the span
-decode kernel.
+decode kernel (K1); the data pipeline and the eval and AL-inference sweeps
+(``runtime.trainer.Trainer``) with the fused-forward kernel (K2).
 """

@@ -8,6 +8,13 @@ in either package.  What the backend switches mean in this port:
   (``ops/decode.py``); ``"pallas"`` runs the hand-written Hopper kernel
   (``ops/kernels/span_decode.py``), which takes the plain decode only for
   tensors on the CPU.
+* ``train.sweep_backend`` (the eval and AL-inference sweeps of
+  ``runtime/trainer.py``): ``"flax"`` runs the port's eager SeqPAN;
+  ``"fused"`` runs ``encoder_inputs``, then K2 (the fused forward,
+  ``ops/kernels/fused_forward.py``), then K1, whatever
+  ``model.span_decode`` says, as the JAX package's fused sweeps do.
+  ``train.fused_block`` is the TPU kernel's block of samples and is not
+  read: K2 takes one sample per thread block and any B.
 * ``model.matmul_precision``: every value runs full fp32 on the card, with
   TF32 off for cuBLAS and cuDNN alike (:func:`apply_matmul_precision`).
 * ``model.compute_dtype``: only ``"float32"``; bf16 activations arrive with
@@ -60,6 +67,16 @@ def apply_matmul_precision(name: str) -> None:
     torch.set_float32_matmul_precision(TORCH_MATMUL_PRECISION[name])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """``device`` as a torch.device; raises for ``cuda`` without a card, so
+    nothing moves to the CPU on its own."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run on the CPU")
+    return device
 
 
 @dataclass

@@ -1,6 +1,16 @@
-"""Video feature downsampling (counterpart of ``hual_tpu/data/features.py``)."""
+"""Video feature store (counterpart of ``hual_tpu/data/features.py``).
+
+Per-clip visual features (one ``.npy`` per video) are loaded into RAM,
+videos longer than ``max_vlen`` are mean-pooled down to ``max_vlen`` clips,
+and the store packs them into one zero-padded (num_videos, max_vlen, vdim)
+table.  The JAX package's multithreaded C++ loader is not ported yet:
+``FeatureStore.from_dir`` takes the NumPy path.
+"""
 
 from __future__ import annotations
+
+import glob
+import os
 
 import numpy as np
 
@@ -28,3 +38,69 @@ def visual_feature_sampling(feature: np.ndarray, max_num_clips: int) -> np.ndarr
     if np.any(empty):
         out[empty] = feature[starts[empty]]
     return out.astype(feature.dtype)
+
+
+def load_video_features(root: str, max_position_length: int | None
+                        ) -> dict[str, np.ndarray]:
+    """Load all <root>/*.npy into a dict vid -> (T<=max, D) float32 array."""
+    video_features: dict[str, np.ndarray] = {}
+    for filename in sorted(glob.glob(os.path.join(root, "*.npy"))):
+        video_id = os.path.basename(filename).rsplit(".", 1)[0]
+        feature = np.load(filename)
+        if max_position_length is not None:
+            feature = visual_feature_sampling(feature,
+                                              max_num_clips=max_position_length)
+        video_features[video_id] = np.asarray(feature, dtype=np.float32)
+    return video_features
+
+
+def quantize_features(packed: np.ndarray,
+                      chunk_rows: int = 4096) -> tuple[np.ndarray, np.ndarray]:
+    """Symmetric per-clip int8 quantization of a packed (N, T, D) table.
+
+    ``scale[n, t] = amax(|packed[n, t, :]|) / 127`` (1.0 for all-zero clips,
+    so padding dequantizes to exact zeros); dequantized on gather as
+    ``q.float() * scale[..., None]`` (``runtime/steps.gather_batch``).
+    Chunked over rows to bound the f32 temporaries.
+    """
+    n = packed.shape[0]
+    q = np.empty(packed.shape, dtype=np.int8)
+    scales = np.empty(packed.shape[:2], dtype=np.float32)
+    for lo in range(0, n, chunk_rows):
+        x = packed[lo:lo + chunk_rows].astype(np.float32, copy=False)
+        amax = np.abs(x).max(axis=-1)
+        s = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
+        q[lo:lo + chunk_rows] = np.clip(np.rint(x / s[..., None]),
+                                        -127, 127).astype(np.int8)
+        scales[lo:lo + chunk_rows] = s
+    return q, scales
+
+
+class FeatureStore:
+    """RAM-resident features packed into one contiguous zero-padded
+    (num_videos, max_vlen, D) table plus a vid -> row index."""
+
+    def __init__(self, features: dict[str, np.ndarray], max_vlen: int):
+        self.max_vlen = max_vlen
+        self.vid_index: dict[str, int] = {}
+        vids = list(features)
+        dim = features[vids[0]].shape[1] if vids else 0
+        self.packed = np.zeros((len(vids), max_vlen, dim), dtype=np.float32)
+        self.lengths = np.zeros((len(vids),), dtype=np.int32)
+        for i, vid in enumerate(vids):
+            feat = features[vid]
+            n = min(feat.shape[0], max_vlen)
+            self.packed[i, :n] = feat[:n]
+            self.lengths[i] = n
+            self.vid_index[vid] = i
+
+    @classmethod
+    def from_dir(cls, root: str, max_vlen: int) -> "FeatureStore":
+        """The packed store of a feature directory, through NumPy."""
+        return cls(load_video_features(root, max_vlen), max_vlen)
+
+    def rows(self, vids: list[str]) -> np.ndarray:
+        return np.asarray([self.vid_index[v] for v in vids], dtype=np.int32)
+
+    def gather(self, rows: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        return self.packed[rows], self.lengths[rows]

@@ -37,6 +37,8 @@ class SeqPAN(nn.Module):
             raise ValueError(f"span_decode must be 'xla' or 'pallas', "
                              f"got {span_decode!r}")
         self.max_vlen, self.attn_layer = max_vlen, attn_layer
+        self.dim, self.num_heads = dim, num_heads
+        self.tau, self.use_gumbel = tau, use_gumbel
         self.span_decode = span_decode
         self.word_embs = WordEmbedding(word_dim)
         self.char_embs = CharEmbedding(num_chars, char_dim)

@@ -1,0 +1,315 @@
+"""The fused deterministic SeqPAN forward (counterpart of
+``hual_tpu/ops/pallas/fused_forward.py``).
+
+K2 computes everything after the input projections: the shared positional
+embedding and conv block on both streams, the dual-attention stack, CQ
+fusion, the matching softmax with the soft label embedding, and the
+conditioned predictor.  Its inputs are the projected and normalised streams
+``vf (B,T,D)`` and ``qf (B,W,D)`` with their 0/1 masks; its outputs are
+``start_logits (B,T)``, ``end_logits (B,T)`` and ``match_scores (B,T,4)``.
+
+* :func:`pack_weights` packs K2's 152 leaves into one contiguous f32 buffer,
+  in the order ``csrc/fused_forward.cu`` walks it (:func:`pack_order`).
+* :func:`forward_math` is the plain PyTorch version of K2's function, with
+  ordinary per-sample masked attention; it reads every weight from the
+  packed buffer, so it checks the packing too.
+* :func:`encoder_inputs` runs the model's own embedding, projection and LN
+  submodules; :func:`seqpan_forward_fused` chains them, K2 and K1.
+
+Packed layout: each leaf is stored row-major in the JAX package's layout
+with its unit axes dropped: a dense kernel is ``(in, out)``, a depthwise
+filter ``(k, D)``, a vector ``(n,)``, a table ``(rows, D)``.  The 18 leaves
+of the input front (``word_embs``, ``char_embs``, ``query_conv1d``,
+``q_layer_norm``, ``video_conv1d``, ``v_layer_norm``) are left out: they
+run before K2, in :func:`encoder_inputs`.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+
+from hual_tpu_torch.ops.masking import MASK_VALUE, sequence_mask
+
+# Leaves of the input front, computed before K2 (encoder_inputs).
+FRONT_MODULES = ("word_embs", "char_embs", "query_conv1d", "q_layer_norm",
+                 "video_conv1d", "v_layer_norm")
+
+_DUAL_DENSES = ("query", "f_key", "f_value", "t_key", "t_value", "s_dense",
+                "x_dense", "s_gate", "x_gate", "guided_dense")
+
+
+def _conv_block_order(path: str) -> list[str]:
+    keys = []
+    for i in range(4):
+        dw = f"{path}/depthwise_conv_layers_{i}"
+        keys += [f"{path}/layer_norm_{i}/scale", f"{path}/layer_norm_{i}/bias",
+                 f"{dw}/depthwise_filter", f"{dw}/pointwise_filter", f"{dw}/bias"]
+    return keys
+
+
+def _dense_order(path: str, bias: bool = True) -> list[str]:
+    return [f"{path}/kernel"] + ([f"{path}/bias"] if bias else [])
+
+
+def _ln_order(path: str) -> list[str]:
+    return [f"{path}/scale", f"{path}/bias"]
+
+
+def pack_order(attn_layer: int) -> list[str]:
+    """K2's leaves (JAX keys without the ``params/`` prefix) in the order of
+    the packed buffer; ``csrc/fused_forward.cu`` reads them in this order."""
+    keys = ["pos_emb/position_embeddings"] + _conv_block_order("conv_block")
+    for li in range(attn_layer):
+        d = f"d_attn_{li}"
+        m = f"{d}/dual_multihead_attention"
+        keys += (_ln_order(f"{d}/layer_norm_1") + _ln_order(f"{d}/layer_norm_t")
+                 + _ln_order(f"{d}/layer_norm_2"))
+        for name in _DUAL_DENSES:
+            keys += _dense_order(f"{m}/{name}")
+        for bl in ("bilinear_1", "bilinear_2"):
+            keys += [f"{m}/{bl}/dense_1/kernel", f"{m}/{bl}/dense_2/kernel",
+                     f"{m}/{bl}/bias"]
+        keys += _dense_order(f"{d}/dense_1") + _dense_order(f"{d}/dense_2")
+    for name in ("q2v_attn", "v2q_attn"):
+        tri = f"{name}/efficient_trilinear"
+        keys += [f"{tri}/linear_kernel4arg0", f"{tri}/linear_kernel4arg1",
+                 f"{tri}/linear_kernel4mul"] + _dense_order(f"{name}/dense", False)
+    keys += ["cq_cat/weighted_pooling/weight"] + _dense_order("cq_cat/dense")
+    keys += _dense_order("matching_head/dense") + ["label_emb"]
+    fe = "predictor/feature_encoder"
+    keys += [f"{fe}/pos_emb/position_embeddings"] + _conv_block_order(f"{fe}/conv_block")
+    keys += _ln_order(f"{fe}/layer_norm_1")
+    for name in ("query", "key", "value"):
+        keys += _dense_order(f"{fe}/top_self_attention/{name}")
+    keys += _ln_order(f"{fe}/layer_norm_2") + _dense_order(f"{fe}/dense")
+    keys += (_ln_order("predictor/start_layer_norm")
+             + _ln_order("predictor/end_layer_norm")
+             + _dense_order("predictor/start_hidden")
+             + _dense_order("predictor/end_hidden")
+             + _dense_order("predictor/start_dense")
+             + _dense_order("predictor/end_dense"))
+    return keys
+
+
+def _kernel_layout(jax_shaped: torch.Tensor) -> torch.Tensor:
+    """A leaf in the JAX package's shape with its unit axes dropped."""
+    shape = [s for s in jax_shaped.shape if s != 1] or [1]
+    return jax_shaped.reshape(shape)
+
+
+@dataclass
+class PackedWeights:
+    """K2's weights: one contiguous f32 buffer on the model's device and a
+    static layout, JAX key (without ``params/``) -> (offset, shape)."""
+
+    buffer: torch.Tensor
+    layout: dict[str, tuple[int, tuple[int, ...]]]
+    attn_layer: int
+
+    def __call__(self, key: str) -> torch.Tensor:
+        offset, shape = self.layout[key]
+        return self.buffer[offset:offset + math.prod(shape)].view(shape)
+
+    @property
+    def max_pos(self) -> int:
+        return self.layout["pos_emb/position_embeddings"][1][0]
+
+
+def pack_weights(model) -> PackedWeights:
+    """Pack ``model``'s K2 leaves into one buffer, once per sweep."""
+    from hual_tpu_torch.weights import _leaves  # the port's leaf walk
+
+    leaves = {}
+    with torch.no_grad():
+        for key, param, _, to_jax in _leaves(model):
+            key = key[len("params/"):]
+            if key.split("/")[0] in FRONT_MODULES:
+                continue
+            # the layout moves of K2's leaves are indexing and .T only, so
+            # weights.py's NumPy moves apply to tensors as they are
+            leaves[key] = _kernel_layout(to_jax(param.detach()))
+        order = pack_order(model.attn_layer)
+        if sorted(order) != sorted(leaves):
+            raise ValueError("K2's pack order and the model's leaves differ: "
+                             f"{sorted(set(order) ^ set(leaves))}")
+        layout, offset, parts = {}, 0, []
+        for key in order:
+            t = leaves[key].float()
+            layout[key] = (offset, tuple(t.shape))
+            offset += t.numel()
+            parts.append(t.reshape(-1))
+        buffer = torch.cat(parts).contiguous()
+    return PackedWeights(buffer, layout, model.attn_layer)
+
+
+# -- the plain version ----------------------------------------------------------
+def forward_math(packed: PackedWeights, vf: torch.Tensor, qf: torch.Tensor,
+                 v_mask: torch.Tensor, q_mask: torch.Tensor, *, attn_layer: int,
+                 num_heads: int, tau: float, use_gumbel: bool
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2's function in plain PyTorch: (start_logits, end_logits,
+    match_scores), all f32.  Weights come from ``packed``."""
+    w = packed
+    vm = v_mask.to(torch.float32)
+    qm = q_mask.to(torch.float32)
+    D = vf.shape[-1]
+    H = num_heads
+    hd = D // H
+
+    def ln(x, path):
+        mean = x.mean(dim=-1, keepdim=True)
+        var = (x - mean).square().mean(dim=-1, keepdim=True)
+        return (x - mean) * torch.rsqrt(var + 1e-6) * w(path + "/scale") \
+            + w(path + "/bias")
+
+    def dense(x, path, bias=True):
+        y = torch.matmul(x, w(path + "/kernel"))
+        return y + w(path + "/bias") if bias else y
+
+    def conv_block(x, path):
+        L = x.shape[1]
+        for i in range(4):
+            dwp = f"{path}/depthwise_conv_layers_{i}"
+            h = ln(x, f"{path}/layer_norm_{i}")
+            filt = w(dwp + "/depthwise_filter")                 # (7, D)
+            hp = F.pad(h, (0, 0, 3, 3))
+            acc = torch.zeros_like(h)
+            for k in range(filt.shape[0]):
+                acc = acc + hp[:, k:k + L] * filt[k]
+            pw = torch.matmul(acc, w(dwp + "/pointwise_filter"))
+            x = torch.relu(pw + w(dwp + "/bias")) + x
+        return x
+
+    def attend(q, k, v, fm, tm):
+        # the additive bias of ops/masking.attention_bias: an all-padding
+        # `from` row gets -1e30 on every score and attends uniformly
+        B, Tq, _ = q.shape
+        Tk = k.shape[1]
+        qh = q.reshape(B, Tq, H, hd).transpose(1, 2)
+        kh = k.reshape(B, Tk, H, hd).transpose(1, 2)
+        vh = v.reshape(B, Tk, H, hd).transpose(1, 2)
+        bias = (1.0 - fm[:, :, None] * tm[:, None, :]) * MASK_VALUE
+        scores = torch.matmul(qh, kh.transpose(-1, -2)) * (1.0 / math.sqrt(hd))
+        prob = torch.softmax(scores + bias[:, None], dim=-1)
+        return torch.matmul(prob, vh).transpose(1, 2).reshape(B, Tq, D)
+
+    def dual_attn(frm, to, fm, tm, pre):
+        m = f"{pre}/dual_multihead_attention"
+        out = ln(frm, pre + "/layer_norm_1")
+        ton = ln(to, pre + "/layer_norm_t")
+        q = dense(out, m + "/query")
+        s_out = attend(q, dense(out, m + "/f_key"), dense(out, m + "/f_value"),
+                       fm, fm)
+        x_out = attend(q, dense(ton, m + "/t_key"), dense(ton, m + "/t_value"),
+                       fm, tm)
+        s_val = dense(s_out, m + "/s_dense")
+        x_val = dense(x_out, m + "/x_dense")
+        s_gate = torch.sigmoid(dense(s_val, m + "/s_gate"))
+        x_gate = torch.sigmoid(dense(x_val, m + "/x_gate"))
+        outputs = dense(s_gate * x_val + x_gate * s_val, m + "/guided_dense")
+
+        def bilinear(name):
+            return (torch.matmul(out, w(f"{m}/{name}/dense_1/kernel"))
+                    + torch.matmul(outputs, w(f"{m}/{name}/dense_2/kernel"))
+                    + w(f"{m}/{name}/bias"))
+
+        f = fm[:, :, None]
+        gated = torch.sigmoid(bilinear("bilinear_1") * f
+                              + MASK_VALUE * (1.0 - f)) * bilinear("bilinear_2")
+        res = dense(gated, pre + "/dense_1") + frm
+        return dense(ln(res, pre + "/layer_norm_2"), pre + "/dense_2") + res
+
+    def cq_attention(x1, x2, m1, m2, name):
+        tri = f"{name}/efficient_trilinear"
+        sub0 = torch.matmul(x1, w(tri + "/linear_kernel4arg0"))[:, :, None]
+        sub1 = torch.matmul(x2, w(tri + "/linear_kernel4arg1"))[:, None, :]
+        sub2 = torch.matmul(x1 * w(tri + "/linear_kernel4mul"), x2.transpose(1, 2))
+        score = sub0 + sub1 + sub2                              # (B, T1, T2)
+        mk2 = m2[:, None, :]
+        mk1 = m1[:, :, None]
+        score_ = torch.softmax(score * mk2 + MASK_VALUE * (1.0 - mk2), dim=-1)
+        score_t = torch.softmax(score * mk1 + MASK_VALUE * (1.0 - mk1), dim=1)
+        c2q = torch.matmul(score_, x2)
+        q2c = torch.matmul(torch.matmul(score_, score_t.transpose(1, 2)), x1)
+        att = torch.cat([x1, c2q, x1 * c2q, x1 * q2c], dim=-1)
+        return dense(att, name + "/dense", bias=False)
+
+    def feature_encoder(x, fm):
+        fe = "predictor/feature_encoder"
+        feats = x + w(fe + "/pos_emb/position_embeddings")[None, :x.shape[1]]
+        feats = conv_block(feats, fe + "/conv_block")
+        o = ln(feats, fe + "/layer_norm_1")
+        sa = fe + "/top_self_attention"
+        res = attend(dense(o, sa + "/query"), dense(o, sa + "/key"),
+                     dense(o, sa + "/value"), fm, fm) + feats
+        return dense(ln(res, fe + "/layer_norm_2"), fe + "/dense") + res
+
+    pos = w("pos_emb/position_embeddings")
+    vf = conv_block(vf + pos[None, :vf.shape[1]], "conv_block")
+    qf = conv_block(qf + pos[None, :qf.shape[1]], "conv_block")
+    for li in range(attn_layer):
+        vf, qf = (dual_attn(vf, qf, vm, qm, f"d_attn_{li}"),
+                  dual_attn(qf, vf, qm, vm, f"d_attn_{li}"))
+
+    q2v = cq_attention(vf, qf, vm, qm, "q2v_attn")                 # (B, T, D)
+    v2q = cq_attention(qf, vf, qm, vm, "v2q_attn")                 # (B, W, D)
+    x = torch.matmul(v2q, w("cq_cat/weighted_pooling/weight"))[:, :, None]
+    qmk = qm[:, :, None]
+    alphas = torch.softmax(x * qmk + MASK_VALUE * (1.0 - qmk), dim=1)
+    pooled = (v2q * alphas).sum(dim=1)                             # (B, D)
+    tiled = pooled[:, None, :].expand(-1, q2v.shape[1], -1)
+    fuse = dense(torch.cat([q2v, tiled], dim=-1), "cq_cat/dense")
+
+    mlogits = dense(fuse, "matching_head/dense")
+    if use_gumbel:
+        mlogits = mlogits / tau          # the deterministic part only
+    mscores = torch.softmax(mlogits, dim=-1)                       # (B, T, 4)
+    outputs = (fuse + torch.matmul(mscores, w("label_emb"))) * vm[:, :, None]
+
+    start_f = feature_encoder(outputs, vm)
+    end_f = feature_encoder(start_f, vm)
+    p = "predictor"
+    start_h = torch.relu(dense(torch.cat(
+        [ln(start_f, p + "/start_layer_norm"), outputs], dim=-1), p + "/start_hidden"))
+    end_h = torch.relu(dense(torch.cat(
+        [ln(end_f, p + "/end_layer_norm"), outputs], dim=-1), p + "/end_hidden"))
+    # the (D, 1) kernels are packed as (D,): these products are (B, T)
+    start_logits = dense(start_h, p + "/start_dense")
+    end_logits = dense(end_h, p + "/end_dense")
+    return start_logits, end_logits, mscores
+
+
+# -- the path around K2 ---------------------------------------------------------
+def encoder_inputs(model, batch: dict[str, torch.Tensor],
+                   word_vectors: torch.Tensor):
+    """The input front (embeddings, input projections, LN) through the
+    model's own submodules: (vf, qf, v_mask, q_mask)."""
+    v_mask = sequence_mask(batch["video_seq_len"], model.max_vlen)
+    q_mask = (batch["word_ids"] != 0).to(torch.int32)
+    qf = torch.cat([model.word_embs(batch["word_ids"], word_vectors),
+                    model.char_embs(batch["char_ids"])], dim=-1)
+    qf = model.q_layer_norm(model.query_conv1d(qf))
+    vf = model.v_layer_norm(model.video_conv1d(batch["video_features"]))
+    return vf.contiguous(), qf.contiguous(), v_mask, q_mask
+
+
+def seqpan_forward_fused(model, packed: PackedWeights,
+                         batch: dict[str, torch.Tensor],
+                         word_vectors: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Deterministic SeqPAN forward: the input front, K2, then K1's span
+    decode.  Carries the keys the eval and infer sweeps read."""
+    from hual_tpu_torch.ops.kernels.fused_forward import fused_forward
+    from hual_tpu_torch.ops.kernels.span_decode import span_decode
+
+    vf, qf, v_mask, q_mask = encoder_inputs(model, batch, word_vectors)
+    start_logits, end_logits, match_scores = fused_forward(
+        packed, vf, qf, v_mask, q_mask, attn_layer=model.attn_layer,
+        num_heads=model.num_heads, tau=model.tau, use_gumbel=model.use_gumbel)
+    start_index, end_index = span_decode(start_logits, end_logits, v_mask)
+    return {"v_mask": v_mask, "q_mask": q_mask, "match_scores": match_scores,
+            "start_logits": start_logits, "end_logits": end_logits,
+            "start_index": start_index, "end_index": end_index}

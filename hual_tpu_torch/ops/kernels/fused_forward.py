@@ -1,0 +1,119 @@
+"""Wrapper of the Hopper fused-forward kernel K2 (``csrc/fused_forward.cu``).
+
+It replaces the TPU kernel ``hual_tpu/ops/pallas/fused_forward.py``.  For
+tensors on the CPU it runs the plain version, ``ops.fused_forward.
+forward_math``; for CUDA tensors it launches the kernel or raises, and never
+falls back.  ``fused_forward.launches`` counts the kernel's launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from hual_tpu_torch.ops.fused_forward import PackedWeights, forward_math
+from hual_tpu_torch.ops.kernels import build
+
+
+@functools.cache
+def _library():
+    lib = build.load("fused_forward")
+    lib.fused_forward_f32.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.fused_forward_f32.restype = ctypes.c_int
+    lib.fused_forward_weight_floats.argtypes = [ctypes.c_int] * 3
+    lib.fused_forward_weight_floats.restype = ctypes.c_longlong
+    lib.fused_forward_workspace_floats.argtypes = [ctypes.c_int] * 4
+    lib.fused_forward_workspace_floats.restype = ctypes.c_longlong
+    return lib
+
+
+def workspace_floats(T: int, W: int, D: int, num_heads: int) -> int:
+    """f32 values of per-sample workspace the kernel needs (~0.8 MB a sample
+    at T=64, D=128, 8 heads)."""
+    return int(_library().fused_forward_workspace_floats(T, W, D, num_heads))
+
+
+def _check(packed: PackedWeights, vf, qf, v_mask, q_mask, attn_layer: int,
+           num_heads: int) -> None:
+    dev = vf.device
+    for t, name, dtype, dims in ((packed.buffer, "packed weights", torch.float32, 1),
+                                 (vf, "vf", torch.float32, 3),
+                                 (qf, "qf", torch.float32, 3),
+                                 (v_mask, "v_mask", torch.int32, 2),
+                                 (q_mask, "q_mask", torch.int32, 2)):
+        if t.device != dev:
+            raise ValueError(f"fused_forward: {name} is on {t.device}, vf on {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"fused_forward: {name} must be {dtype}, got {t.dtype}")
+        if t.dim() != dims:
+            raise ValueError(f"fused_forward: {name} must have {dims} dims, "
+                             f"got shape {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"fused_forward: {name} must be contiguous")
+    B, T, D = vf.shape
+    W = qf.shape[1]
+    if qf.shape != (B, W, D):
+        raise ValueError(f"fused_forward: qf has shape {tuple(qf.shape)}, "
+                         f"expected (B={B}, W, D={D})")
+    if v_mask.shape != (B, T) or q_mask.shape != (B, W):
+        raise ValueError(f"fused_forward: masks {tuple(v_mask.shape)} and "
+                         f"{tuple(q_mask.shape)} do not match (B,T)={B, T}, "
+                         f"(B,W)={B, W}")
+    if T < 1 or W < 1 or max(T, W) > packed.max_pos:
+        raise ValueError(f"fused_forward: T={T} and W={W} must lie in "
+                         f"[1, {packed.max_pos}] (the positional table)")
+    if num_heads < 1 or D % num_heads:
+        raise ValueError(f"fused_forward: D={D} not divisible by "
+                         f"{num_heads} heads")
+    if attn_layer != packed.attn_layer:
+        raise ValueError(f"fused_forward: attn_layer={attn_layer}, the weights "
+                         f"were packed for {packed.attn_layer}")
+
+
+def fused_forward(packed: PackedWeights, vf: torch.Tensor, qf: torch.Tensor,
+                  v_mask: torch.Tensor, q_mask: torch.Tensor, *, attn_layer: int,
+                  num_heads: int, tau: float, use_gumbel: bool
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2: projected streams vf (B,T,D) / qf (B,W,D) f32 and their int32 0/1
+    masks -> (start_logits (B,T), end_logits (B,T), match_scores (B,T,4))."""
+    _check(packed, vf, qf, v_mask, q_mask, attn_layer, num_heads)
+    if vf.device.type == "cpu":
+        return forward_math(packed, vf, qf, v_mask, q_mask,
+                            attn_layer=attn_layer, num_heads=num_heads,
+                            tau=tau, use_gumbel=use_gumbel)
+    if vf.device.type != "cuda":
+        raise ValueError(f"fused_forward: unsupported device {vf.device}")
+    B, T, D = vf.shape
+    W = qf.shape[1]
+    lib = _library()
+    expected = lib.fused_forward_weight_floats(D, attn_layer, packed.max_pos)
+    if packed.buffer.numel() != expected:
+        raise ValueError(f"fused_forward: {packed.buffer.numel()} packed "
+                         f"weights, the kernel reads {expected}")
+    dev = vf.device
+    start = torch.empty((B, T), dtype=torch.float32, device=dev)
+    end = torch.empty((B, T), dtype=torch.float32, device=dev)
+    scores = torch.empty((B, T, 4), dtype=torch.float32, device=dev)
+    if B == 0:
+        return start, end, scores
+    workspace = torch.empty(B * workspace_floats(T, W, D, num_heads),
+                            dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.fused_forward_f32(
+            packed.buffer.data_ptr(), vf.data_ptr(), qf.data_ptr(),
+            v_mask.data_ptr(), q_mask.data_ptr(), start.data_ptr(),
+            end.data_ptr(), scores.data_ptr(), workspace.data_ptr(),
+            B, T, W, D, num_heads, attn_layer, packed.max_pos, float(tau),
+            int(bool(use_gumbel)), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_forward kernel launch failed: CUDA error {rc}")
+    fused_forward.launches += 1
+    return start, end, scores
+
+
+fused_forward.launches = 0

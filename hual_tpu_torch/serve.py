@@ -25,7 +25,8 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
-from hual_tpu_torch.config import Config, apply_matmul_precision
+from hual_tpu_torch.config import (Config, apply_matmul_precision,
+                                   resolve_device)
 from hual_tpu_torch.data.features import visual_feature_sampling
 from hual_tpu_torch.data.tokenize import tokenize
 from hual_tpu_torch.data.vocab import UNK
@@ -71,14 +72,6 @@ def span_score(start_logits: torch.Tensor, end_logits: torch.Tensor,
     return torch.triu(sp[:, :, None] * ep[:, None, :]).amax(dim=(1, 2))
 
 
-def _resolve_device(device: str | torch.device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("Predictor: no CUDA device is available; pass "
-                           "device='cpu' to serve on the CPU")
-    return device
-
-
 class Predictor:
     """Batched moment-retrieval inference on one device.
 
@@ -90,7 +83,7 @@ class Predictor:
                  word_dict: dict[str, int], char_dict: dict[str, int],
                  word_vectors: np.ndarray, max_wlen: int, max_clen: int,
                  batch_size: int = 8, device: str | torch.device = "cuda"):
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         if self.device.type == "cuda":
             apply_matmul_precision(config.model.matmul_precision)
         self.config = config
@@ -109,7 +102,7 @@ class Predictor:
     @classmethod
     def from_bundle(cls, path: str, batch_size: int = 8,
                     device: str | torch.device = "cuda") -> "Predictor":
-        device = _resolve_device(device)
+        device = resolve_device(device)
         with open(os.path.join(path, _META)) as f:
             meta = json.load(f)
         with open(os.path.join(path, _VOCAB)) as f:
