@@ -8,9 +8,13 @@ line; any failure exits non-zero before the last line:
 1. environment: ``nvidia-smi`` name and power limit, torch / CUDA versions,
    the TF32 flags after the port pins full fp32;
 2. build: every kernel of ``hual_tpu_torch/csrc`` compiled for sm_90a, one
-   nvcc per source, all started together;
+   nvcc per source, all started together; ptxas's registers and spills per
+   kernel (any spill fails), and the count of DMMA (f64 tensor-core)
+   instructions in K2's SASS by ``cuobjdump -sass`` (0 fails);
 3. span_decode: the kernel against its plain PyTorch version on the card,
-   at the main path's shapes and larger, indices exactly equal; CUDA-event
+   at the main path's shapes and larger (up to T=128), with crafted rows
+   (all-equal probabilities, ties, a suffix maximum in a later 32-position
+   chunk than the start), indices exactly equal; CUDA-event
    times of both, their time inside kernels (torch.profiler) and the byte
    bound;
 4. serve: a bundle of seeded random weights at Charades width
@@ -27,12 +31,14 @@ line; any failure exits non-zero before the last line:
    vocabulary) written in the reference's file formats, its features built
    in memory into the port's FeatureStore (a 1.7 GB table on the card);
 6. fused_forward: K2 against its plain version (in f64) on the card at
-   (96,64), (8,64) and (5,64) with the sweep's query length and at
-   (32,100), with padded rows, a length-1 video and a one-word query:
+   (96,64), (8,64), (5,64) and (1,64) with the sweep's query length, at
+   (32,100) and at (3,17,5), ragged in every tile dimension, with padded
+   rows, a length-1 video and a one-word query:
    logits within rtol 1e-4 / atol 2e-4, match scores within atol 1e-5,
    K1's indices from both equal or a printed near-tie; the f32 plain
    version's own error; CUDA-event and in-kernel times, the plain version's
-   time (f32) and the FLOP bound;
+   time (f32) and the FLOP bound; threads and dynamic shared memory per
+   block and workspace bytes per sample;
 7. sweep_charades: Trainer.test() and Trainer.infer_trainset() at batch 96
    (span_decode: pallas) with sweep_backend flax and fused on seeded random
    weights at Charades width: R@1 and mIoU of both, the samples whose
@@ -54,6 +60,7 @@ import logging
 import math
 import os
 import pickle
+import re
 import shutil
 import statistics
 import string
@@ -95,7 +102,7 @@ SERVE_BATCHES = (8, 32, 96)
 N_REQUESTS = 203            # ragged final chunk at every batch size
 MAX_WLEN, MAX_CLEN = 30, 12
 DECODE_SHAPES = ((8, 64), (32, 64), (96, 64), (32, 100), (96, 100), (256, 100),
-                 (5, 33), (3, 1))   # the last two: a ragged block, T=1
+                 (96, 128), (5, 33), (3, 1))   # the last two: a ragged block, T=1
 MAIN_SHAPE = (96, 64)       # the span decode of one batch-96 Charades chunk
 # NVIDIA's data-sheet peaks of the H100 SXM at 700 W: device memory bytes/s,
 # fp32 FLOP/s outside the tensor cores
@@ -237,13 +244,54 @@ def environment() -> None:
 
 
 # -- phase 2 ------------------------------------------------------------------
+def ptxas_resources(log: str) -> dict:
+    """Registers, stack and spill bytes of each kernel in nvcc's -Xptxas -v
+    log (a function's properties count for the entry compiled before it)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            out[name] = {"registers": None, "stack_bytes": 0, "spill_bytes": 0}
+        elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                                      r"stores, (\d+) bytes spill loads", line)):
+            out[name]["stack_bytes"] += int(m[1])
+            out[name]["spill_bytes"] += int(m[2]) + int(m[3])
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name]["registers"] = int(m[1])
+    return out
+
+
+def sass_count(name: str, opcode: str) -> int:
+    """Instructions of ``opcode`` in the SASS of kernel library ``name``."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    sass = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
+                           str(build.library_path(name))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    n = 0
+    for line in sass.splitlines():
+        words = line.split("*/", 1)[1].split() if "*/" in line else []
+        if words and words[0].startswith("@"):       # a predicate
+            words = words[1:]
+        n += bool(words) and words[0].split(".")[0] == opcode
+    return n
+
+
 def build_kernels() -> None:
     names = sorted(f[:-3] for f in os.listdir(build.CSRC) if f.endswith(".cu"))
     t0 = time.perf_counter()
     compiled = build.build(names)
     check(set(compiled) == set(names),
           f"kernels were not built from the sources: {sorted(compiled)} of {names}")
+    resources = {n: ptxas_resources(c["log"]) for n, c in compiled.items()}
+    for n, kernels in resources.items():
+        check(kernels, f"{n}: no ptxas resource report")
+        for k, r in kernels.items():
+            check(r.get("spill_bytes", 0) == 0, f"{n}: ptxas spills in {k}: {r}")
+    dmma = sass_count("fused_forward", "DMMA")
+    check(dmma > 0, "K2's SASS holds no DMMA instruction")
     emit({"build": {"seconds": time.perf_counter() - t0, "compiled": compiled,
+                    "ptxas": resources, "fused_forward_sass_dmma": dmma,
                     "arch": build.ARCH, "nvcc_flags": list(build.NVCC_FLAGS),
                     "libraries": [os.path.relpath(build.library_path(n), ROOT)
                                   for n in names]}})
@@ -259,6 +307,11 @@ def decode_inputs(B: int, T: int, rng: np.random.Generator):
         sl[2] = el[2] = 0.25                    # every position ties
         sl[3, 1:4] = sl[3].max() + 1.0          # tied start maxima
         el[3, 2:5] = el[3].max() + 1.0          # tied end maxima
+    if B >= 6 and T >= 40:
+        lens[4:6] = (T, T // 2 + 3)
+        el[4] = -5.0                            # the start in chunk 0, the
+        el[4, T - 2] = sl[4, 0] = 5.0           # suffix maximum in the last
+        sl[5] = el[5] = -0.75                   # all-equal probabilities
     mask = (np.arange(T)[None, :] < lens[:, None]).astype(np.int32)
     dev = torch.device("cuda")
     return (torch.from_numpy(sl).to(dev), torch.from_numpy(el).to(dev),
@@ -278,6 +331,9 @@ def decode_phase() -> dict:
         if B >= 4 and T >= 8:
             check(ks[2].item() == 0 and ke[2].item() == 0 and ks[3].item() == 1
                   and ke[3].item() == 2, f"span_decode tie-break wrong at {(B, T)}")
+        if B >= 6 and T >= 40:
+            check((ks[4].item(), ke[4].item(), ks[5].item(), ke[5].item())
+                  == (0, T - 2, 0, 0), f"span_decode crafted rows wrong at {(B, T)}")
         max_err = max((ks - ps).abs().max().item(), (ke - pe).abs().max().item())
         # least work: read three (B,T) arrays, write two (B,) ones; ~24 f32
         # operations per element in the O(T) form (masked softmax of both
@@ -605,8 +661,10 @@ def k2_inputs(B: int, T: int, W: int, rng: np.random.Generator):
 def fused_forward_phase(W: int) -> dict:
     """K2 against its plain version on the card at the sweep's shapes."""
     rng = np.random.default_rng(SEED + 2)
-    # at ActivityNet width the queries take the serve phase's word bound
-    shapes = ((96, 64, W), (8, 64, W), (5, 64, W), (32, 100, MAX_WLEN))
+    # at ActivityNet width the queries take the serve phase's word bound;
+    # (3,17,5) is ragged in every tile dimension (weights of the T=64 model)
+    shapes = ((96, 64, W), (8, 64, W), (5, 64, W), (1, 64, W), (32, 100, MAX_WLEN),
+              (3, 17, 5))
     packs = {}
     for T in (64, 100):
         model = SeqPAN(**{k: v for k, v in CHARADES.items() if k not in ("name", "max_tlen")}
@@ -615,9 +673,13 @@ def fused_forward_phase(W: int) -> dict:
         packs[T] = pack_weights(model)
     kw = dict(attn_layer=CHARADES["attn_layer"], num_heads=CHARADES["num_heads"],
               tau=0.3, use_gumbel=False)
+    check(k2._library().fused_forward_max_len() == k2.MAX_LEN
+          and k2._library().fused_forward_max_dim() == k2.MAX_DIM,
+          "the wrapper's shape limit differs from the kernel's")
     rows = []
+    dims = (CHARADES["dim"], CHARADES["num_heads"])
     for B, T, Wq in shapes:
-        packed = packs[T]
+        packed = packs[64 if T <= 64 else 100]
         args = k2_inputs(B, T, Wq, rng)
         got = k2.fused_forward(packed, *args, **kw)
         torch.cuda.synchronize()
@@ -665,10 +727,15 @@ def fused_forward_phase(W: int) -> dict:
                      "flops": flops, "bytes": n_bytes,
                      "bound_ms": max(t_ops, t_bytes),
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                     "gflops_per_s": flops / (ms * 1e-3) / 1e9})
+                     "gflops_per_s": flops / (ms * 1e-3) / 1e9,
+                     "threads_per_block": k2.threads_per_block(),
+                     "smem_bytes_per_block": k2.smem_bytes(T, Wq, *dims),
+                     "heads_per_group": k2.heads_per_group(T, Wq, *dims),
+                     "workspace_bytes_per_sample":
+                         4 * k2.workspace_floats(T, Wq, CHARADES["dim"],
+                                                 CHARADES["num_heads"])})
     emit({"fused_forward": {
-        "shapes": rows, "workspace_mb_per_sample_t64":
-            k2.workspace_floats(64, W, CHARADES["dim"], CHARADES["num_heads"]) * 4 / 1e6,
+        "shapes": rows, "max_len": k2.MAX_LEN, "max_dim": k2.MAX_DIM,
         "reference": "errors against the plain version in f64 on the card; "
                      "plain_ms times it in f32",
         "timing": "ms: median of 20 calls by CUDA events, queued behind a device "

@@ -21,33 +21,83 @@
 //
 // Bound on the H100: operations.  About 161 MFLOP a sample at Charades
 // width (T=64, W=13, D=128, 8 heads, 2 layers), 15.5 GFLOP at B=96, i.e.
-// 0.23 ms at 67 TFLOP/s (the fp32 peak outside the tensor cores, and the
-// fp64 peak of the tensor cores); the bytes (3.9 MB of packed weights,
-// 4.0 MB of inputs and outputs at B=96) take ~2.4 us at 3.35 TB/s.
+// 0.23 ms at 67 TFLOP/s (the f64 peak of the tensor cores); the bytes
+// (3.9 MB of packed weights, 4.0 MB of inputs and outputs at B=96) take
+// ~2.4 us at 3.35 TB/s.
 //
-// Design, layout (a) of the two offered: ONE kernel, one 256-thread block
-// per sample, walking every stage with __syncthreads() between them.  It is
-// the simplest layout that keeps the whole forward in one launch and keeps
-// samples apart by construction.  The activations live in a per-sample
-// workspace in device memory (the wrapper allocates it with torch.empty;
-// fused_forward_workspace_floats gives its size, ~0.8 MB a sample at T=64),
-// read back through the SM's L1 and the 50 MB L2; the masks sit in shared
-// memory.  Every product is this file's own code: a register-tiled FMA loop
-// (4x4 outputs per thread, operands through L1), with no cuBLAS, no TF32
-// and no tensor cores.  Operands and stored activations are f32; each
-// product's sum runs in f64 and is rounded to f32 once.  The reason is the
-// parity bound on the match scores (atol 1e-5): at B=96 an f32 forward is
-// itself ~1e-5 away from the exact one (chip_smoke.py prints the plain
-// version's f32 error), so K2 is held against the plain version in f64
-// and has to be more exact than f32 summation.  expf and true division
-// throughout, no fast math: K1 decodes these logits, and its indices flip
-// on near-ties.  What this leaves on the table, for later work: one block
-// per sample uses B of the 132 SMs with 8 warps each, so the FMA loops are
-// latency-bound; staging operand tiles in shared memory and wgmma on bf16
-// are the next steps.
+// Design.  One block of 8 warps per sample walks every stage, with
+// __syncthreads() between them.
+// - Products on the FP64 tensor cores.  Every product at least 8 outputs
+//   wide (the dense layers, the conv blocks' pointwise layers, each head's
+//   q.k^T and p.v, the CQ trilinear and its three products, cq_cat, the
+//   predictor's hidden layers) is mma.sync m16n8k4 in f64 (DMMA), inline
+//   PTX below.  The f32 operands convert exactly to f64, products and sums
+//   run in f64 and each output is rounded to f32 once, in the epilogue:
+//   the match scores' parity bound (atol 1e-5, at the edge of an f32
+//   forward) needs f64 sums, and DMMA gives them at twice the f64 rate of
+//   the CUDA cores.  TF32 keeps too few bits, and wgmma has no f64 form.
+//   Fragments (CUTLASS's
+//   SM90_16x8x4_F64F64F64F64_TN): lane l, g = l/4, t = l%4, holds A[g][t],
+//   A[g+8][t], B[t][g] and C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1].
+// - Each warp owns a 32x32 tile of outputs (2x4 fragments, 32 f64
+//   accumulators); the 8 warps cover 64x128, 128x64 or 256x32 outputs a
+//   pass, by the product's width, and skip fragments wholly past M or N.
+// - Operands in shared memory.  The activation rows and the weight are
+//   staged in k-slabs of 64 f32 with cp.async (16-byte copies where the
+//   rows allow, 4-byte copies with zero fill otherwise), double-buffered,
+//   so the next slab's copy overlaps this slab's mma.  Rows are padded (68
+//   or PN+8 floats) so that fragment loads are free of bank conflicts.
+//   Each fragment is converted to f64 in the k-loop and used by the warp's
+//   2 or 4 mma that take it.  Measured on the H100 (PERF.md), this beat an
+//   f64 copy of the packed weights (twice the staged bytes), converting
+//   each slab once in a pass over shared memory, and converting with
+//   integer operations.  Zero fill pads every ragged tile (T=100, W=13,
+//   Tk=13): padded k reads zeros, padded outputs are never stored, and no
+//   padded column enters a softmax.
+// - Attention in shared memory: q, k and v are copied there once a call
+//   (over the stages, which are free between products); then a group of
+//   heads at a time (as many as fit: 4 of 8 at T=64, 1 at T=100; see
+//   fused_forward_heads_per_group) gets its Tq x Tk scores there, the
+//   masked softmax over the real Tk (8 lanes a row), and p.v, with both
+//   operands read in place and no barrier inside a product: the warps take
+//   (head, tile) jobs in turn.
+// - The activations between stages stay in a per-sample workspace in
+//   device memory (fused_forward_workspace_floats: 0.49 MB a sample at
+//   T=64, 0.83 MB at T=100): 13 buffers of Lm x D, shared by activations
+//   whose lifetimes do not overlap, the CQ attention's four Lm x Lm
+//   matrices and 5 small vectors, read back through L1 and L2.
+// - Narrow products stay on the CUDA cores, summed in f64: the matching
+//   head (N=4) and the final (D,1) denses; the pooling and trilinear dots
+//   in f32.  LayerNorm holds a row in registers (a float4 a
+//   lane); the depthwise conv and the elementwise stages go 4 channels a
+//   thread.
+// - Each bilinear of a dual-attention layer is one product with K = 2D:
+//   out and the guided output share a buffer as the two halves of each
+//   row, and the packed dense_1 and dense_2 kernels are adjacent, so
+//   [out | outputs] @ [d1; d2] needs no read-modify-write epilogue.
+// - Epilogues capture by value, a product keeps its operands in locals,
+//   and it loads the lane's bias values and residuals before its first
+//   store, handing them to the epilogue: a load that follows a store it
+//   may alias waits for it, output by output (PERF.md: 8% and 3% of the
+//   call).
+// - expf and true division throughout, no fast math: K1 decodes these
+//   logits, and its indices flip on near-ties.  LayerNorm, softmaxes and
+//   gates stay f32.
+// Registers: every stage (encode, fuse, predict, conv block, attention,
+// dual attention, CQ attention, feature encoder, LayerNorm, softmax) and
+// every product is a separate function (__noinline__), and the kernel's
+// pointers into the workspace are derived from the Ctx at each use, so no
+// function holds more across a call than the ABI keeps: ptxas reports 240
+// registers, 600 bytes of stack and no spills (sm_90a).
+// Resources: 256 threads; dynamic shared memory (fused_forward_smem_bytes)
+// of the stages or q/k/v, a head group's scores and the masks: 174 KB at
+// T=64, 213 KB at T=100, opted in above 48 KB with cudaFuncSetAttribute.
+// T and W are at most kMaxLen = 100 and D at most kMaxDim = 128, a
+// multiple of 4, so that q, k and v fit beside one head's scores (the
+// wrapper's check_kernel_shape).
 //
 // Plain C interface, bound from Python with ctypes; the entry point returns
-// cudaGetLastError() so a refused launch is reported to the caller.
+// the first CUDA error of its attribute call or launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -64,9 +114,50 @@ constexpr int kConvLayers = 4;  // layers of a conv block
 constexpr int kLabels = 4;      // matching-head classes
 constexpr float kMask = -1e30f;
 
-// Per-sample workspace: kBuffers buffers of Lm x D (Lm = max(T, W)), one of
-// Lm x 4D, a score region of max(2H, 4) x Lm x Lm and 5 small vectors.
-constexpr int kBuffers = 19;
+// products on the tensor cores
+constexpr int kTile = 32;             // a warp's tile of outputs: kTile x kTile
+constexpr int kTileShift = 5;         // log2(kTile)
+constexpr int kSlab = 64;             // k depth of one staged slab
+constexpr int kSlabShift = 6;         // log2(kSlab)
+constexpr int kSlabLd = kSlab + 4;    // row stride of a k-contiguous slab
+constexpr int kMaxPassN = 4 * kTile;  // widest pass: 4 warps across N
+constexpr int kMaxLen = 100;          // largest T or W
+constexpr int kMaxDim = 128;          // largest D
+constexpr long kSmemLimit = 232448;   // bytes of shared memory a block may use
+
+// Per-sample workspace: kBuffers buffers of Lm x D (Lm = max(T, W)), the
+// CQ attention's 4 matrices of Lm x Lm and 5 small vectors.  Buffers whose
+// lifetimes do not overlap share one (see the kernel).
+constexpr int kBuffers = 13;
+
+// Dynamic shared memory, in floats: a region that holds either the two
+// stages of a staged product (each an A slab of up to Lm rows, then a B
+// slab) or, inside attention, the Q, K and V rows; then the score tiles of
+// a group of `heads` heads (Lm rows each); then the two masks.  Q and K
+// rows are D+4 floats apart, V rows D+8, score rows lm_pad+4: conflict-free
+// fragment loads.  `heads` is the largest divisor of H that fits.
+struct SmemLayout {
+  int a_floats, b_floats, region, score_ld, head_floats, heads, masks;
+  __host__ __device__ SmemLayout(int T, int W, int D, int H) {
+    const int lm = T > W ? T : W;
+    const int lm_pad = (lm + kTile - 1) / kTile * kTile;
+    a_floats = lm_pad * kSlabLd;
+    const int row_major = kSlab * (kMaxPassN + 8), nt = kMaxPassN * kSlabLd;
+    b_floats = row_major > nt ? row_major : nt;
+    const int stages = 2 * (a_floats + b_floats),
+              qkv = lm * (3 * D + 16);
+    region = stages > qkv ? stages : qkv;
+    score_ld = lm_pad + 4;
+    head_floats = lm * score_ld;
+    masks = T + W;
+    for (heads = H; heads > 1; --heads)
+      if (H % heads == 0 && floats() * 4 <= kSmemLimit) break;
+  }
+  __host__ __device__ long floats() const {
+    return static_cast<long>(region) + static_cast<long>(heads) * head_floats +
+           masks;
+  }
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
@@ -81,6 +172,48 @@ __device__ __forceinline__ float warp_max(float v) {
 
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// -- PTX: DMMA and cp.async ----------------------------------------------------
+// d += a . b for one m16n8k4 fragment, f64 (see the note at the top).
+__device__ __forceinline__ void dmma_16x8x4(double (&d)[4], double a0,
+                                            double a1, double b0) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a0), "d"(a1), "d"(b0));
+}
+
+// Copies N (4 or 16) bytes from device to shared memory, or writes
+// zeros there when !valid (src-size 0: nothing is read).
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(src), "r"(valid ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+                 "l"(src), "n"(N), "r"(valid ? N : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Waits until at most `pending` of this thread's copy groups are in flight.
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
 }
 
 // -- packed weights -----------------------------------------------------------
@@ -175,112 +308,272 @@ __device__ CQW take_cq(Cursor& c, int D) {
 }
 
 // -- block-wide building blocks --------------------------------------------
-// Batched strided product: for bi < nb, m < M, n < N
-//   epi(bi, m, n, sum_k A[bi*a_b + m*a_m + k*a_k] * B[bi*b_b + k*b_k + n*b_n])
-// Each thread owns 4x4 tiles of outputs; consecutive threads take
-// consecutive column tiles, so a warp reads one A value (broadcast) and 128
-// consecutive B values per k when b_n == 1.  The f32 operands are
-// multiplied and summed in f64, in order over k, and the sum is rounded to
-// f32 once (see the note at the top).
-template <class Epi>
-__device__ void gemm(int nb, int M, int N, int K, const float* A, long a_b,
-                     int a_m, int a_k, const float* B, long b_b, int b_k,
-                     int b_n, Epi epi) {
-  const int tm = (M + 3) / 4, tn = (N + 3) / 4;
-  const int per_b = tm * tn;
-  const int tiles = nb * per_b;
-  for (int t = threadIdx.x; t < tiles; t += blockDim.x) {
-    const int bi = t / per_b;
-    const int r = t - bi * per_b;
-    const int m0 = (r / tn) * 4, n0 = (r % tn) * 4;
-    const float* Ab = A + bi * a_b;
-    const float* Bb = B + bi * b_b;
-    int am[4], bn[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      am[i] = min(m0 + i, M - 1) * a_m;  // clamped rows: computed, not stored
-      bn[i] = min(n0 + i, N - 1) * b_n;
+struct Ctx {
+  int T, W, D, H, Lm;
+  float* stage;      // two stages of stage_floats: an A slab (a_floats), then
+  int stage_floats;  // a B slab; inside attention, the Q, K and V rows
+  int a_floats;
+  float* S;          // the scores of `heads` heads: Tq rows of lds floats each
+  int lds, heads;
+  float* ws;         // the sample's workspace: buffers of ld floats
+  long ld;
+};
+
+// A row-major matrix: element (r, c) at p[r * ld + c].
+struct Mat {
+  const float* p;
+  int ld;
+};
+
+// Rows that 16-byte copies can stage: an aligned start, ld and cols
+// multiples of 4.
+__device__ __forceinline__ bool rows_aligned(const float* p, int ld, int cols) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && ld % 4 == 0 &&
+         cols % 4 == 0;
+}
+
+// Starts copying rows [r0, r0 + R) x columns [c0, c0 + (1 << cshift)) of the
+// row-major matrix src (row stride ld; rmax rows, cmax columns) to dst (row
+// stride lds), zeros outside the matrix.  vec: 16-byte copies (see
+// rows_aligned; c0 a multiple of 4, so a copy is wholly in or out).
+__device__ __forceinline__ void stage_tile(float* dst, int lds, const float* src,
+                                           int ld, int r0, int R, int rmax,
+                                           int c0, int cshift, int cmax,
+                                           bool vec) {
+  if (vec) {
+    const int qs = cshift - 2;
+    for (int e = threadIdx.x; e < (R << qs); e += kThreads) {
+      const int r = e >> qs, c = (e & ((1 << qs) - 1)) << 2;
+      const bool ok = r0 + r < rmax && c0 + c < cmax;
+      cp_async<16>(dst + r * lds + c,
+                   ok ? src + static_cast<long>(r0 + r) * ld + c0 + c : src, ok);
     }
-    double acc[4][4];
+  } else {
+    for (int e = threadIdx.x; e < (R << cshift); e += kThreads) {
+      const int r = e >> cshift, c = e & ((1 << cshift) - 1);
+      const bool ok = r0 + r < rmax && c0 + c < cmax;
+      cp_async<4>(dst + r * lds + c,
+                  ok ? src + static_cast<long>(r0 + r) * ld + c0 + c : src, ok);
+    }
+  }
+}
+
+// epi(m, n, f32(sum_k A[m, k] * B[k, n]) [+ bias[n]], res[m, n] or 0) for
+// m < M, n < N (res has rows of N), each output
+// once, from the thread that owns it (the same thread for every product of
+// the same M and N).  A is row-major (M x K) in device memory; B is
+// row-major (K x N) in device memory, or with kBNT stored as N x K (B[k, n]
+// at b.p[n * ld + k]).  Both are staged through shared memory in k-slabs
+// of f32; each fragment is converted to f64 in the k-loop.  Products and
+// sums in f64 on the tensor cores.  Ends with the block synchronised after
+// its last read of shared memory.
+template <bool kBNT, class Epi>
+__device__ __noinline__ void gemm(int M, int N, int K, Mat a, Mat b,
+                                  const float* bias, const float* res,
+                                  const Ctx& x, Epi epi_arg) {
+  // locals, not reloads from x after each cp.async wait (a memory clobber)
+  const Epi epi = epi_arg;
+  float* const stage = x.stage;
+  const int stage_floats = x.stage_floats, a_floats = x.a_floats;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int g = lane >> 2, t = lane & 3;
+  const int wc_shift = N > 2 * kTile ? 2 : N > kTile ? 1 : 0;
+  const int pn_shift = kTileShift + wc_shift;
+  const int PN = 1 << pn_shift, PM = (kTile * kWarps) >> wc_shift;
+  const int wm = (warp >> wc_shift) * kTile;              // the warp's tile
+  const int wn = (warp & ((1 << wc_shift) - 1)) * kTile;  // within a pass
+  const bool a_vec = rows_aligned(a.p, a.ld, K);
+  const bool b_vec = rows_aligned(b.p, b.ld, kBNT ? K : N);
+  const int bld = kBNT ? kSlabLd : PN + 8;  // B slab row stride
+  const int slabs = (K + kSlab - 1) / kSlab;
+  for (int m0 = 0; m0 < M; m0 += PM) {
+    const int rows = min(PM, (M - m0 + kTile - 1) / kTile * kTile);
+    for (int n0 = 0; n0 < N; n0 += PN) {
+      auto load = [&](int s) {
+        float* st = stage + (s & 1) * stage_floats;
+        const int k0 = s * kSlab;
+        stage_tile(st, kSlabLd, a.p, a.ld, m0, rows, M, k0, kSlabShift, K, a_vec);
+        if (kBNT)
+          stage_tile(st + a_floats, kSlabLd, b.p, b.ld, n0, PN, N, k0,
+                     kSlabShift, K, b_vec);
+        else
+          stage_tile(st + a_floats, bld, b.p, b.ld, k0, kSlab, K, n0,
+                     pn_shift, N, b_vec);
+        cp_async_commit();
+      };
+      // live fragments of the warp's tile: 16-row and 8-column ones
+      const int mi_n = min(2, max(0, (M - m0 - wm + 15) / 16));
+      const int nj_n = min(4, max(0, (N - n0 - wn + 7) / 8));
+      double acc[2][4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0;
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.0;
+      load(0);
+      for (int s = 0; s < slabs; ++s) {
+        if (s + 1 < slabs) {
+          load(s + 1);
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();
+        const float* As = stage + (s & 1) * stage_floats;
+        const float* Bs = As + a_floats;
+        if (mi_n > 0 && nj_n > 0) {
+          const int steps = (min(kSlab, K - s * kSlab) + 3) >> 2;
 #pragma unroll 2
-    for (int k = 0; k < K; ++k) {
-      double a[4], b[4];
+          for (int kk = 0; kk < steps; ++kk) {
+            const int k = kk * 4 + t;
+            double av[2][2], bv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Ab[am[i] + k * a_k];
+            for (int i = 0; i < 2; ++i) {
+              const int r = wm + i * 16 + g;
+              av[i][0] = As[r * kSlabLd + k];
+              av[i][1] = As[(r + 8) * kSlabLd + k];
+            }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bb[k * b_k + bn[j]];
+            for (int j = 0; j < 4; ++j) {
+              const int c = wn + j * 8 + g;
+              bv[j] = kBNT ? Bs[c * kSlabLd + k] : Bs[k * bld + c];
+            }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+            for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fma(a[i], b[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
+              for (int j = 0; j < 4; ++j)
+                if (i < mi_n && j < nj_n)  // warp-uniform
+                  dmma_16x8x4(acc[i][j], av[i][0], av[i][1], bv[j]);
+          }
+        }
+        __syncthreads();  // the stages are free for the next copy
+      }
+      // the lane's bias values and residuals, loaded before any store (a
+      // store through epi could alias them, and each load would wait)
+      float bv[4][2], rv[2][4][2][2];
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (m0 + i < M && n0 + j < N)
-          epi(bi, m0 + i, n0 + j, static_cast<float>(acc[i][j]));
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int n = n0 + wn + j * 8 + 2 * t + q;
+          bv[j][q] = bias != nullptr && j < nj_n && n < N ? bias[n] : 0.0f;
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              const int m = m0 + wm + i * 16 + g + 8 * h,
+                        n = n0 + wn + j * 8 + 2 * t + q;
+              rv[i][j][h][q] = res != nullptr && i < mi_n && j < nj_n && m < M &&
+                                       n < N
+                                   ? res[static_cast<long>(m) * N + n]
+                                   : 0.0f;
+            }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (i >= mi_n || j >= nj_n) continue;
+#pragma unroll
+          for (int h = 0; h < 2; ++h)  // rows m and m + 8
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {  // columns n and n + 1
+              const int m = m0 + wm + i * 16 + g + 8 * h,
+                        n = n0 + wn + j * 8 + 2 * t + q;
+              if (m >= M || n >= N) continue;
+              float v = static_cast<float>(acc[i][j][2 * h + q]);
+              if (bias != nullptr) v = v + bv[j][q];
+              epi(m, n, v, rv[i][j][h][q]);
+            }
+        }
+    }
   }
 }
 
-// y[m, n] = epi(m, n, x[m, :] @ W[:, n]) for a dense layer; x is (M, K)
-// row-major with row stride K.
+// A dense layer: epi(m, n, x[m, :] @ d.w[:, n] + d.b[n], res[m, n] or 0);
+// x is (M, K) row-major with rows lda floats apart, d.w (K, N), d.b (N,)
+// or null, res (M, N) or null.
 template <class Epi>
-__device__ void dense(const float* x, int M, int K, int N, const float* w,
-                      Epi epi) {
-  gemm(1, M, N, K, x, 0, K, 1, w, 0, N, 1,
-       [&](int, int m, int n, float acc) { epi(m, n, acc); });
+__device__ void dense(const float* in, int lda, int M, int K, int N, Dense d,
+                      const Ctx& x, Epi epi, const float* res = nullptr) {
+  gemm<false>(M, N, K, Mat{in, lda}, Mat{d.w, N}, d.b, res, x, epi);
 }
 
-// LayerNorm over the last axis (eps 1e-6), one warp per row; y has row
-// stride ldy.
-__device__ void layer_norm(const float* x, float* y, int ldy, int L, int D,
-                           LN p) {
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  for (int row = warp; row < L; row += kWarps) {
-    const float* xr = x + static_cast<long>(row) * D;
-    float s = 0.0f;
-    for (int d = lane; d < D; d += kWarp) s += xr[d];
-    const float mean = warp_sum(s) / D;
-    float v = 0.0f;
-    for (int d = lane; d < D; d += kWarp) {
-      const float c = xr[d] - mean;
-      v += c * c;
-    }
-    const float inv = rsqrtf(warp_sum(v) / D + 1e-6f);
-    float* yr = y + static_cast<long>(row) * ldy;
-    for (int d = lane; d < D; d += kWarp)
-      yr[d] = (xr[d] - mean) * inv * p.scale[d] + p.bias[d];
+// The same for a narrow N (the matching head, the (D,1) denses): one
+// thread per output on the CUDA cores, f64 sums in order over k.
+template <class Epi>
+__device__ __noinline__ void narrow_dense(const float* in, int M, int K, int N,
+                             const float* w, Epi epi) {
+  for (int e = threadIdx.x; e < M * N; e += kThreads) {
+    const int m = e / N, n = e % N;
+    const float* xr = in + static_cast<long>(m) * K;
+    double acc = 0.0;
+    for (int k = 0; k < K; ++k)
+      acc = fma(static_cast<double>(xr[k]), static_cast<double>(w[k * N + n]),
+                acc);
+    epi(m, n, static_cast<float>(acc));
   }
 }
 
-// Softmax over each of R rows of length N (row stride ld), in place; one
-// warp per row.
-__device__ void softmax_rows(float* s, int R, int N, int ld) {
+// LayerNorm over the last axis (eps 1e-6), one warp per row held in
+// registers (a float4 a lane: D <= 128, a multiple of 4); y has row stride
+// ldy, a multiple of 4.
+__device__ __noinline__ void layer_norm(const float* __restrict__ x,
+                                        float* __restrict__ y,
+                           int ldy, int L, int D, LN p) {
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  for (int row = warp; row < R; row += kWarps) {
-    float* r = s + static_cast<long>(row) * ld;
+  const bool has = lane < D / 4;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float4 sc = has ? ld4(p.scale + 4 * lane) : zero;
+  const float4 bi = has ? ld4(p.bias + 4 * lane) : zero;
+  for (int row = warp; row < L; row += kWarps) {
+    const float4 v = has ? ld4(x + static_cast<long>(row) * D + 4 * lane) : zero;
+    const float mean = warp_sum((v.x + v.y) + (v.z + v.w)) / D;
+    const float4 c = make_float4(v.x - mean, v.y - mean, v.z - mean, v.w - mean);
+    const float var = has ? (c.x * c.x + c.y * c.y) + (c.z * c.z + c.w * c.w) : 0.0f;
+    const float inv = rsqrtf(warp_sum(var) / D + 1e-6f);
+    if (has)
+      st4(y + static_cast<long>(row) * ldy + 4 * lane,
+          make_float4(c.x * inv * sc.x + bi.x, c.y * inv * sc.y + bi.y,
+                      c.z * inv * sc.z + bi.z, c.w * inv * sc.w + bi.w));
+  }
+}
+
+// Softmax over each of R rows of length N (row stride ld), in place; 8
+// lanes a row, 32 rows at a time.
+__device__ __noinline__ void softmax_rows(float* s, int R, int N, int ld) {
+  constexpr int kLanes = 8;
+  const int group = threadIdx.x / kLanes, l = threadIdx.x % kLanes;
+  for (int r0 = 0; r0 < R; r0 += kThreads / kLanes) {  // uniform trip count
+    const int row = r0 + group;
+    const bool live = row < R;
+    float* r = s + static_cast<long>(live ? row : 0) * ld;
     float m = -INFINITY;
-    for (int j = lane; j < N; j += kWarp) m = fmaxf(m, r[j]);
-    m = warp_max(m);
+    if (live)
+      for (int j = l; j < N; j += kLanes) m = fmaxf(m, r[j]);
+    for (int o = kLanes / 2; o > 0; o >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(kFull, m, o));
     float sum = 0.0f;
-    for (int j = lane; j < N; j += kWarp) {
-      const float e = expf(r[j] - m);
-      r[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < N; j += kWarp) r[j] = r[j] / sum;
+    if (live)
+      for (int j = l; j < N; j += kLanes) {
+        const float e = expf(r[j] - m);
+        r[j] = e;
+        sum += e;
+      }
+    for (int o = kLanes / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(kFull, sum, o);
+    if (live)
+      for (int j = l; j < N; j += kLanes) r[j] = r[j] / sum;
   }
 }
 
 // out[row] = x[row, :] . v, one warp per row.
-__device__ void row_dots(const float* x, int L, int D, const float* v,
-                         float* out) {
+__device__ __noinline__ void row_dots(const float* x, int L, int D,
+                                      const float* v, float* out) {
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   for (int row = warp; row < L; row += kWarps) {
     const float* xr = x + static_cast<long>(row) * D;
@@ -291,136 +584,227 @@ __device__ void row_dots(const float* x, int L, int D, const float* v,
   }
 }
 
-struct Dims {
-  int T, W, D, H, Lm;
-};
-
 // x (L x D) in place: kConvLayers x {LN -> depthwise k=7 SAME, zero padding
 // at both ends of L, mask ignored -> pointwise + bias -> relu -> + residual}.
-__device__ void conv_block(float* x, int L, const Dims& d, const ConvBlockW& w,
+__device__ __noinline__ void conv_block(float* xs, int L, const Ctx& x, const ConvBlockW& w,
                            float* h, float* acc) {
-  const int D = d.D;
+  const int D = x.D;
   for (int i = 0; i < kConvLayers; ++i) {
-    layer_norm(x, h, D, L, D, w.ln[i]);
+    layer_norm(xs, h, D, L, D, w.ln[i]);
     __syncthreads();
     const float* f = w.dw[i];
-    for (int e = threadIdx.x; e < L * D; e += blockDim.x) {
-      const int t = e / D, c = e % D;
-      float a = 0.0f;
+    const int nq = D / 4;  // four channels a thread
+    for (int e = threadIdx.x; e < L * nq; e += blockDim.x) {
+      const int t = e / nq, c = (e - t * nq) * 4;
+      float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       for (int k = 0; k < kConvK; ++k) {
         const int s = t + k - kConvK / 2;
-        if (s >= 0 && s < L) a += h[s * D + c] * f[k * D + c];
+        if (s >= 0 && s < L) {
+          const float4 hv = ld4(h + s * D + c), fv = ld4(f + k * D + c);
+          a.x += hv.x * fv.x;
+          a.y += hv.y * fv.y;
+          a.z += hv.z * fv.z;
+          a.w += hv.w * fv.w;
+        }
       }
-      acc[e] = a;
+      st4(acc + t * D + c, a);
     }
     __syncthreads();
-    const float* b = w.pw[i].b;
-    dense(acc, L, D, D, w.pw[i].w, [&](int m, int n, float v) {
-      float* o = x + m * D + n;
-      *o = fmaxf(v + b[n], 0.0f) + *o;
-    });
+    dense(acc, D, L, D, D, w.pw[i], x, [=](int m, int n, float v, float r) {
+      xs[m * D + n] = fmaxf(v, 0.0f) + r;
+    }, xs);
     __syncthreads();
   }
 }
 
-// Multi-head attention scores for nb = H heads:
-//   S[h, i, j] = (q_h[i] . k_h[j]) * scale + (1 - fm[i] * tm[j]) * -1e30
-// An all-padding `from` row gets -1e30 on every score: the finite part is
-// absorbed and the row attends uniformly over the whole Tk.
-__device__ void attn_scores(const float* q, const float* k, const float* fm,
-                            const float* tm, int Tq, int Tk, const Dims& d,
-                            float scale, float* S) {
-  const int hd = d.D / d.H;
-  const long per_head = static_cast<long>(Tq) * Tk;
-  gemm(d.H, Tq, Tk, hd, q, hd, d.D, 1, k, hd, 1, d.D,
-       [&](int h, int i, int j, float acc) {
-         S[h * per_head + i * Tk + j] =
-             acc * scale + (1.0f - fm[i] * tm[j]) * kMask;
-       });
+// Starts copying `rows` rows of `cols` floats (src rows cols apart) to dst
+// (rows ldd apart) with cp.async.
+__device__ void copy_rows(float* dst, int ldd, const float* src, int rows,
+                          int cols) {
+  if (rows_aligned(src, cols, cols) && ldd % 4 == 0) {
+    const int q = cols / 4;
+    for (int e = threadIdx.x; e < rows * q; e += kThreads) {
+      const int r = e / q, c = (e - r * q) * 4;
+      cp_async<16>(dst + r * ldd + c, src + static_cast<long>(r) * cols + c, true);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * cols; e += kThreads) {
+      const int r = e / cols, c = e - r * cols;
+      cp_async<4>(dst + r * ldd + c, src + static_cast<long>(r) * cols + c, true);
+    }
+  }
 }
 
-// out[i, h*hd + c] = sum_j P[h, i, j] * v[j, h*hd + c]
-__device__ void attn_values(const float* P, const float* v, int Tq, int Tk,
-                            const Dims& d, float* out) {
-  const int hd = d.D / d.H;
-  const int D = d.D;
-  gemm(d.H, Tq, hd, Tk, P, static_cast<long>(Tq) * Tk, Tk, 1, v, hd, D, 1,
-       [&](int h, int i, int c, float acc) { out[i * D + h * hd + c] = acc; });
+// epi(bi, m, n, f32(sum_k A_bi[m, k] * B_bi[k, n])) for bi < nb, m < M,
+// n < N, with both operands in shared memory, read in place (zeros past M,
+// N and K): A_bi[m, k] = a[bi * a_bs + m * lda + k]; B_bi[k, n] =
+// b[bi * b_bs + k * ldb + n], or with kBNT b[bi * b_bs + n * ldb + k].  The
+// warps take (bi, 32x32 tile) jobs in turn, with no barrier: nothing is
+// staged.  Products and sums in f64 on the tensor cores.
+template <bool kBNT, class Epi>
+__device__ __noinline__ void gemm_smem(int nb, int M, int N, int K,
+                                       const float* a, int a_bs, int lda,
+                                       const float* b, int b_bs, int ldb,
+                                       Epi epi_arg) {
+  const Epi epi = epi_arg;  // a local copy: no reloads after stores
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int g = lane >> 2, t = lane & 3;
+  const int mt = (M + kTile - 1) / kTile, nt = (N + kTile - 1) / kTile;
+  for (int job = warp; job < nb * mt * nt; job += kWarps) {
+    const int bi = job / (mt * nt), r = job - bi * mt * nt;
+    const int m0 = r / nt * kTile, n0 = r % nt * kTile;
+    const float* A = a + bi * a_bs;
+    const float* Bm = b + bi * b_bs;
+    const int mi_n = min(2, (M - m0 + 15) / 16);  // live 16-row fragments
+    const int nj_n = min(4, (N - n0 + 7) / 8);    // live 8-column fragments
+    double acc[2][4][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.0;
+#pragma unroll 2
+    for (int k0 = 0; k0 < K; k0 += 4) {
+      const int k = k0 + t;
+      const bool kin = k < K;
+      double av[2][2], bv[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int m = m0 + i * 16 + g;
+        av[i][0] = kin && m < M ? A[m * lda + k] : 0.0f;
+        av[i][1] = kin && m + 8 < M ? A[(m + 8) * lda + k] : 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + j * 8 + g;
+        bv[j] = kin && n < N ? (kBNT ? Bm[n * ldb + k] : Bm[k * ldb + n]) : 0.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (i < mi_n && j < nj_n)  // warp-uniform
+            dmma_16x8x4(acc[i][j], av[i][0], av[i][1], bv[j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (i >= mi_n || j >= nj_n) continue;
+        const int m = m0 + i * 16 + g, n = n0 + j * 8 + 2 * t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // rows m and m + 8
+          if (m + 8 * h >= M) continue;
+          if (n < N) epi(bi, m + 8 * h, n, static_cast<float>(acc[i][j][2 * h]));
+          if (n + 1 < N)
+            epi(bi, m + 8 * h, n + 1, static_cast<float>(acc[i][j][2 * h + 1]));
+        }
+      }
+  }
+}
+
+// Multi-head attention over q (Tq x D), k and v (Tk x D):
+//   S_h = (q_h k_h^T) * scale + (1 - fm[i] * tm[j]) * -1e30
+//   out[:, h*hd:(h+1)*hd] = softmax_rows(S_h) @ v_h
+// q, k and v are copied to shared memory once; then x.heads heads at a
+// time: their scores, the masked softmax over the real Tk, and p.v, all in
+// shared memory.  An all-padding `from` row gets -1e30 on every score: the
+// finite part is absorbed and the row attends uniformly over the real Tk.
+__device__ __noinline__ void attention(const float* q, const float* k,
+                                       const float* v, const float* fm,
+                                       const float* tm, int Tq, int Tk,
+                                       const Ctx& x, float scale, float* out) {
+  const int D = x.D, hd = D / x.H, lds = x.lds, G = x.heads;
+  const int ldq = D + 4, ldv = D + 8;
+  float* Qs = x.stage;  // the stages are free between products
+  float* Ks = Qs + x.Lm * ldq;
+  float* Vs = Ks + x.Lm * ldq;
+  float* S = x.S;
+  const int s_bs = Tq * lds;  // one head's scores
+  copy_rows(Qs, ldq, q, Tq, D);
+  copy_rows(Ks, ldq, k, Tk, D);
+  copy_rows(Vs, ldv, v, Tk, D);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int h0 = 0; h0 < x.H; h0 += G) {
+    gemm_smem<true>(G, Tq, Tk, hd, Qs + h0 * hd, hd, ldq, Ks + h0 * hd, hd,
+                    ldq, [=](int g, int i, int j, float acc) {
+                      S[g * s_bs + i * lds + j] =
+                          acc * scale + (1.0f - fm[i] * tm[j]) * kMask;
+                    });
+    __syncthreads();
+    softmax_rows(S, G * Tq, Tk, lds);
+    __syncthreads();
+    gemm_smem<false>(G, Tq, hd, Tk, S, s_bs, lds, Vs + h0 * hd, hd, ldv,
+                     [=](int g, int i, int c, float acc) {
+                       out[i * D + (h0 + g) * hd + c] = acc;
+                     });
+    __syncthreads();
+  }
 }
 
 struct Scratch {
   float* buf[9];  // Lm x D each
-  float* S;       // score region
 };
 
 // One dual-attention layer in one direction: from (Tq rows) attends to
 // itself and to `to` (Tk rows); the result goes to dest (Tq x D).
-__device__ void dual_attn(const float* from, const float* to, const float* fm,
-                          const float* tm, int Tq, int Tk, const Dims& d,
+__device__ __noinline__ void dual_attn(const float* from, const float* to, const float* fm,
+                          const float* tm, int Tq, int Tk, const Ctx& x,
                           const DualW& w, float scale, const Scratch& s,
                           float* dest) {
-  const int D = d.D;
-  float *out = s.buf[0], *ton = s.buf[1], *qp = s.buf[2], *fk = s.buf[3],
-        *fv = s.buf[4], *tk = s.buf[5], *tv = s.buf[6], *sout = s.buf[7],
-        *xout = s.buf[8];
-  float* S1 = s.S;                                       // H x Tq x Tq
-  float* S2 = s.S + static_cast<long>(d.H) * d.Lm * d.Lm;  // H x Tq x Tk
+  const int D = x.D, D2 = 2 * D;
+  // cat (scratch 0 and 1 as Lm rows of 2D): [out | ton], then [out | outputs]
+  float *cat = s.buf[0], *out = cat, *ton = cat + D, *qp = s.buf[2],
+        *fk = s.buf[3], *fv = s.buf[4], *tk = s.buf[5], *tv = s.buf[6],
+        *sout = s.buf[7], *xout = s.buf[8];
 
-  layer_norm(from, out, D, Tq, D, w.ln1);
-  layer_norm(to, ton, D, Tk, D, w.lnt);
+  layer_norm(from, out, D2, Tq, D, w.ln1);
+  layer_norm(to, ton, D2, Tk, D, w.lnt);
   __syncthreads();
-  auto store = [&](float* y, const float* b) {
-    return [=](int m, int n, float v) { y[m * D + n] = v + b[n]; };
+  auto store = [&](float* y) {
+    return [=](int m, int n, float v, float) { y[m * D + n] = v; };
   };
-  dense(out, Tq, D, D, w.query.w, store(qp, w.query.b));
-  dense(out, Tq, D, D, w.f_key.w, store(fk, w.f_key.b));
-  dense(out, Tq, D, D, w.f_value.w, store(fv, w.f_value.b));
-  dense(ton, Tk, D, D, w.t_key.w, store(tk, w.t_key.b));
-  dense(ton, Tk, D, D, w.t_value.w, store(tv, w.t_value.b));
+  dense(out, D2, Tq, D, D, w.query, x, store(qp));
+  dense(out, D2, Tq, D, D, w.f_key, x, store(fk));
+  dense(out, D2, Tq, D, D, w.f_value, x, store(fv));
+  dense(ton, D2, Tk, D, D, w.t_key, x, store(tk));
+  dense(ton, D2, Tk, D, D, w.t_value, x, store(tv));
   __syncthreads();
-  attn_scores(qp, fk, fm, fm, Tq, Tq, d, scale, S1);
-  attn_scores(qp, tk, fm, tm, Tq, Tk, d, scale, S2);
-  __syncthreads();
-  softmax_rows(S1, d.H * Tq, Tq, Tq);
-  softmax_rows(S2, d.H * Tq, Tk, Tk);
-  __syncthreads();
-  attn_values(S1, fv, Tq, Tq, d, sout);
-  attn_values(S2, tv, Tq, Tk, d, xout);
+  attention(qp, fk, fv, fm, fm, Tq, Tq, x, scale, sout);
+  attention(qp, tk, tv, fm, tm, Tq, Tk, x, scale, xout);
   __syncthreads();
   float *s_val = qp, *x_val = fk, *s_gate = fv, *x_gate = tk;
-  dense(sout, Tq, D, D, w.s_dense.w, store(s_val, w.s_dense.b));
-  dense(xout, Tq, D, D, w.x_dense.w, store(x_val, w.x_dense.b));
+  dense(sout, D, Tq, D, D, w.s_dense, x, store(s_val));
+  dense(xout, D, Tq, D, D, w.x_dense, x, store(x_val));
   __syncthreads();
-  const float *sgb = w.s_gate.b, *xgb = w.x_gate.b;
-  dense(s_val, Tq, D, D, w.s_gate.w, [&](int m, int n, float v) {
-    s_gate[m * D + n] = sigmoidf(v + sgb[n]);
+  dense(s_val, D, Tq, D, D, w.s_gate, x, [=](int m, int n, float v, float) {
+    s_gate[m * D + n] = sigmoidf(v);
   });
-  dense(x_val, Tq, D, D, w.x_gate.w, [&](int m, int n, float v) {
-    x_gate[m * D + n] = sigmoidf(v + xgb[n]);
+  dense(x_val, D, Tq, D, D, w.x_gate, x, [=](int m, int n, float v, float) {
+    x_gate[m * D + n] = sigmoidf(v);
   });
   __syncthreads();
   float* mix = sout;
-  for (int e = threadIdx.x; e < Tq * D; e += blockDim.x)
-    mix[e] = s_gate[e] * x_val[e] + x_gate[e] * s_val[e];
+  for (int e = 4 * threadIdx.x; e < Tq * D; e += 4 * blockDim.x) {
+    const float4 sg = ld4(s_gate + e), xv = ld4(x_val + e), xg = ld4(x_gate + e),
+                 sv = ld4(s_val + e);
+    st4(mix + e, make_float4(sg.x * xv.x + xg.x * sv.x, sg.y * xv.y + xg.y * sv.y,
+                             sg.z * xv.z + xg.z * sv.z, sg.w * xv.w + xg.w * sv.w));
+  }
   __syncthreads();
-  float* outputs = xout;
-  dense(mix, Tq, D, D, w.guided.w, store(outputs, w.guided.b));
+  float* outputs = cat + D;  // over ton, which is spent
+  dense(mix, D, Tq, D, D, w.guided, x,
+        [=](int m, int n, float v, float) { outputs[m * D2 + n] = v; });
   __syncthreads();
-  // bilinear_k = out @ d1 + outputs @ d2 + b; the second product's epilogue
-  // reads what the first stored at the same (m, n), which the same thread
-  // wrote (both products have the same shape, hence the same tiling)
+  // bilinear_k = out @ d1 + outputs @ d2 + b as one product with K = 2D:
+  // [out | outputs] @ [d1; d2] (packed next to each other), summed in f64
+  // and rounded once, where the plain version rounds both products
   float *scores = tv, *values = sout;
-  dense(out, Tq, D, D, w.b1d1, [&](int m, int n, float v) { scores[m * D + n] = v; });
-  dense(out, Tq, D, D, w.b2d1, [&](int m, int n, float v) { values[m * D + n] = v; });
-  const float *b1b = w.b1b, *b2b = w.b2b;
-  dense(outputs, Tq, D, D, w.b1d2, [&](int m, int n, float v) {
-    float* o = scores + m * D + n;
-    *o = (*o + v) + b1b[n];
-  });
-  dense(outputs, Tq, D, D, w.b2d2, [&](int m, int n, float v) {
-    float* o = values + m * D + n;
-    *o = (*o + v) + b2b[n];
-  });
+  dense(cat, D2, Tq, D2, D, Dense{w.b1d1, w.b1b}, x, store(scores));
+  dense(cat, D2, Tq, D2, D, Dense{w.b2d1, w.b2b}, x, store(values));
   __syncthreads();
   // gate: sigmoid(scores*m + -1e30*(1-m)) * values, exactly 0 on padded rows
   float* gated = qp;
@@ -430,17 +814,13 @@ __device__ void dual_attn(const float* from, const float* to, const float* fm,
   }
   __syncthreads();
   float* res = fk;
-  const float* d1b = w.dense_1.b;
-  dense(gated, Tq, D, D, w.dense_1.w, [&](int m, int n, float v) {
-    res[m * D + n] = (v + d1b[n]) + from[m * D + n];
-  });
+  dense(gated, D, Tq, D, D, w.dense_1, x,
+        [=](int m, int n, float v, float r) { res[m * D + n] = v + r; }, from);
   __syncthreads();
   layer_norm(res, fv, D, Tq, D, w.ln2);
   __syncthreads();
-  const float* d2b = w.dense_2.b;
-  dense(fv, Tq, D, D, w.dense_2.w, [&](int m, int n, float v) {
-    dest[m * D + n] = (v + d2b[n]) + res[m * D + n];
-  });
+  dense(fv, D, Tq, D, D, w.dense_2, x,
+        [=](int m, int n, float v, float r) { dest[m * D + n] = v + r; }, res);
   __syncthreads();
 }
 
@@ -450,23 +830,25 @@ __device__ void dual_attn(const float* from, const float* to, const float* fm,
 //   score_t = column softmax over T1 masking the `from` rows (m1)
 //   out = [x1, c2q, x1*c2q, x1*q2c] @ dense, c2q = score_ @ x2,
 //   q2c = (score_ @ score_t^T) @ x1
-__device__ void cq_attention(const float* x1, const float* x2, const float* m1,
-                             const float* m2, int T1, int T2, const Dims& d,
+// The four T1 x T2 / T1 x T1 matrices live in the workspace (cqreg).
+__device__ __noinline__ void cq_attention(const float* x1, const float* x2, const float* m1,
+                             const float* m2, int T1, int T2, const Ctx& x,
                              const CQW& w, float* x1wm, float* sub0,
-                             float* sub1, float* Sreg, float* att,
+                             float* sub1, float* cqreg, float* att,
                              float* out) {
-  const int D = d.D;
-  const long lm2 = static_cast<long>(d.Lm) * d.Lm;
-  float *sc = Sreg, *s_ = Sreg + lm2, *st = Sreg + 2 * lm2, *m1m = Sreg + 3 * lm2;
+  const int D = x.D;
+  const long lm2 = static_cast<long>(x.Lm) * x.Lm;
+  float *sc = cqreg, *s_ = cqreg + lm2, *st = cqreg + 2 * lm2,
+        *m1m = cqreg + 3 * lm2;
   row_dots(x1, T1, D, w.w0, sub0);
   row_dots(x2, T2, D, w.w1, sub1);
   for (int e = threadIdx.x; e < T1 * D; e += blockDim.x)
     x1wm[e] = x1[e] * w.wm[e % D];
   __syncthreads();
-  gemm(1, T1, T2, D, x1wm, 0, D, 1, x2, 0, 1, D,
-       [&](int, int i, int j, float acc) {
-         sc[i * T2 + j] = (sub0[i] + sub1[j]) + acc;
-       });
+  gemm<true>(T1, T2, D, Mat{x1wm, D}, Mat{x2, D}, nullptr, nullptr, x,
+                    [=](int i, int j, float acc, float) {
+                      sc[i * T2 + j] = (sub0[i] + sub1[j]) + acc;
+                    });
   __syncthreads();
   {
     const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
@@ -510,23 +892,23 @@ __device__ void cq_attention(const float* x1, const float* x2, const float* m1,
   __syncthreads();
   const int D4 = 4 * D;
   // c2q = score_ @ x2 straight into att[:, D:2D] and x1*c2q into att[:, 2D:3D]
-  gemm(1, T1, D, T2, s_, 0, T2, 1, x2, 0, D, 1,
-       [&](int, int i, int c, float acc) {
-         att[i * D4 + c] = x1[i * D + c];
-         att[i * D4 + D + c] = acc;
-         att[i * D4 + 2 * D + c] = x1[i * D + c] * acc;
-       });
+  gemm<false>(T1, D, T2, Mat{s_, T2}, Mat{x2, D}, nullptr, nullptr, x,
+                     [=](int i, int c, float acc, float) {
+                       att[i * D4 + c] = x1[i * D + c];
+                       att[i * D4 + D + c] = acc;
+                       att[i * D4 + 2 * D + c] = x1[i * D + c] * acc;
+                     });
   // score_ @ score_t^T (T1 x T1)
-  gemm(1, T1, T1, T2, s_, 0, T2, 1, st, 0, 1, T2,
-       [&](int, int i, int i2, float acc) { m1m[i * T1 + i2] = acc; });
+  gemm<true>(T1, T1, T2, Mat{s_, T2}, Mat{st, T2}, nullptr, nullptr, x,
+                    [=](int i, int i2, float acc, float) { m1m[i * T1 + i2] = acc; });
   __syncthreads();
-  gemm(1, T1, D, T1, m1m, 0, T1, 1, x1, 0, D, 1,
-       [&](int, int i, int c, float acc) {
-         att[i * D4 + 3 * D + c] = x1[i * D + c] * acc;
-       });
+  gemm<false>(T1, D, T1, Mat{m1m, T1}, Mat{x1, D}, nullptr, nullptr, x,
+                     [=](int i, int c, float acc, float) {
+                       att[i * D4 + 3 * D + c] = x1[i * D + c] * acc;
+                     });
   __syncthreads();
-  dense(att, T1, D4, D, w.dense.w,
-        [&](int m, int n, float v) { out[m * D + n] = v; });
+  dense(att, D4, T1, D4, D, w.dense, x,
+        [=](int m, int n, float v, float) { out[m * D + n] = v; });
   __syncthreads();
 }
 
@@ -539,39 +921,239 @@ struct FEW {
 
 // Feature encoder: y = x + pos -> conv block -> LN -> self-attention
 // (+ residual) -> LN -> dense (+ residual); y may not alias x.
-__device__ void feature_encoder(const float* x, const float* vm, const Dims& d,
+__device__ __noinline__ void feature_encoder(const float* in, const float* vm, const Ctx& x,
                                 const FEW& w, float scale, const Scratch& s,
                                 float* y) {
-  const int T = d.T, D = d.D;
-  for (int e = threadIdx.x; e < T * D; e += blockDim.x) y[e] = x[e] + w.pos[e];
+  const int T = x.T, D = x.D;
+  for (int e = 4 * threadIdx.x; e < T * D; e += 4 * blockDim.x) {
+    const float4 a = ld4(in + e), b = ld4(w.pos + e);
+    st4(y + e, make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w));
+  }
   __syncthreads();
-  conv_block(y, T, d, w.conv, s.buf[0], s.buf[1]);
+  conv_block(y, T, x, w.conv, s.buf[0], s.buf[1]);
   float *o = s.buf[0], *q = s.buf[1], *k = s.buf[2], *v = s.buf[3],
         *att = s.buf[4], *res = s.buf[5], *ln2 = s.buf[6];
   layer_norm(y, o, D, T, D, w.ln1);
   __syncthreads();
-  auto store = [&](float* out, const float* b) {
-    return [=](int m, int n, float val) { out[m * D + n] = val + b[n]; };
+  auto store = [&](float* out) {
+    return [=](int m, int n, float val, float) { out[m * D + n] = val; };
   };
-  dense(o, T, D, D, w.q.w, store(q, w.q.b));
-  dense(o, T, D, D, w.k.w, store(k, w.k.b));
-  dense(o, T, D, D, w.v.w, store(v, w.v.b));
+  dense(o, D, T, D, D, w.q, x, store(q));
+  dense(o, D, T, D, D, w.k, x, store(k));
+  dense(o, D, T, D, D, w.v, x, store(v));
   __syncthreads();
-  attn_scores(q, k, vm, vm, T, T, d, scale, s.S);
+  attention(q, k, v, vm, vm, T, T, x, scale, att);
   __syncthreads();
-  softmax_rows(s.S, d.H * T, T, T);
-  __syncthreads();
-  attn_values(s.S, v, T, T, d, att);
-  __syncthreads();
-  for (int e = threadIdx.x; e < T * D; e += blockDim.x) res[e] = att[e] + y[e];
+  for (int e = 4 * threadIdx.x; e < T * D; e += 4 * blockDim.x) {
+    const float4 a = ld4(att + e), b = ld4(y + e);
+    st4(res + e, make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w));
+  }
   __syncthreads();
   layer_norm(res, ln2, D, T, D, w.ln2);
   __syncthreads();
-  const float* db = w.dense.b;
-  dense(ln2, T, D, D, w.dense.w, [&](int m, int n, float val) {
-    y[m * D + n] = (val + db[n]) + res[m * D + n];
+  dense(ln2, D, T, D, D, w.dense, x,
+        [=](int m, int n, float val, float r) { y[m * D + n] = val + r; }, res);
+  __syncthreads();
+}
+
+// The sample's workspace (x.ws, rows x.ld floats apart): buffers 0-3 hold
+// the two streams and their next layer, 4-12 are scratch, then the CQ
+// attention's 4 Lm x Lm matrices and the small vectors.  After the
+// dual-attention stack the spent pair takes q2v and v2q, then the feature
+// encoders' outputs; the final pair takes fuse and outp.  `wide` (Lm x 4D)
+// is scratch 1-4.  Pointers are derived from x at each use: x lives in
+// memory that every stage function sees, so they are reloaded after a call
+// instead of being held (and spilled) across it.
+__device__ __forceinline__ float* buf(const Ctx& x, int i) {
+  return x.ws + i * x.ld;
+}
+
+__device__ __forceinline__ float* vec(const Ctx& x, int i) {  // Lm floats each
+  return x.ws + kBuffers * x.ld + 4L * x.Lm * x.Lm + static_cast<long>(i) * x.Lm;
+}
+
+// Shared positional embedding and conv block on both streams, then the
+// dual-attention stack.  Returns the buffer of the final video stream (0 or
+// 2); the query stream follows it.
+__device__ __noinline__ int encode(const Ctx& x, Cursor& c, const float* vfb,
+                                   const float* qfb, const float* vm,
+                                   const float* qm, int P, int attn_layer,
+                                   float scale, const Scratch& s) {
+  const int T = x.T, W = x.W, D = x.D;
+  const float* pos = c.take(static_cast<long>(P) * D);
+  const ConvBlockW cb = take_conv_block(c, D);
+  for (int e = 4 * threadIdx.x; e < T * D; e += 4 * blockDim.x) {
+    const float4 a = ld4(vfb + e), b = ld4(pos + e);
+    st4(buf(x, 0) + e, make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w));
+  }
+  for (int e = 4 * threadIdx.x; e < W * D; e += 4 * blockDim.x) {
+    const float4 a = ld4(qfb + e), b = ld4(pos + e);
+    st4(buf(x, 1) + e, make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w));
+  }
+  __syncthreads();
+  conv_block(buf(x, 0), T, x, cb, s.buf[0], s.buf[1]);
+  conv_block(buf(x, 1), W, x, cb, s.buf[0], s.buf[1]);
+  int cur = 0;
+  for (int li = 0; li < attn_layer; ++li) {
+    const DualW dw = take_dual(c, D);
+    dual_attn(buf(x, cur), buf(x, cur + 1), vm, qm, T, W, x, dw, scale, s,
+              buf(x, 2 - cur));
+    dual_attn(buf(x, cur + 1), buf(x, cur), qm, vm, W, T, x, dw, scale, s,
+              buf(x, 3 - cur));
+    cur = 2 - cur;
+  }
+  return cur;
+}
+
+// CQ fusion both ways, weighted pooling, cq_cat, the matching softmax (to
+// ms_out) and the soft label embedding: fuse and then outp in the final
+// streams' buffers.
+__device__ __noinline__ void fuse(const Ctx& x, Cursor& c, const float* vm,
+                                  const float* qm, int cur, const Scratch& s,
+                                  float* ms_out, int use_gumbel, float tau) {
+  const int T = x.T, W = x.W, D = x.D, D2 = 2 * D;
+  const int xv = cur, xq = cur + 1, q2v = 2 - cur, v2q = 3 - cur;
+  float* cqreg = buf(x, kBuffers);
+  const CQW q2v_w = take_cq(c, D);
+  const CQW v2q_w = take_cq(c, D);
+  cq_attention(buf(x, xv), buf(x, xq), vm, qm, T, W, x, q2v_w, s.buf[0],
+               vec(x, 0), vec(x, 1), cqreg, s.buf[1], buf(x, q2v));
+  cq_attention(buf(x, xq), buf(x, xv), qm, vm, W, T, x, v2q_w, s.buf[0],
+               vec(x, 0), vec(x, 1), cqreg, s.buf[1], buf(x, v2q));
+  const float* wp = c.take(D);
+  const Dense cq_cat = take_dense(c, 2 * D, D);
+  row_dots(buf(x, v2q), W, D, wp, vec(x, 2));
+  __syncthreads();
+  if (threadIdx.x < kWarp) {  // masked softmax over W, one warp
+    float* poolx = vec(x, 2);
+    const int lane = threadIdx.x;
+    float mx = -INFINITY;
+    for (int j = lane; j < W; j += kWarp) {
+      poolx[j] = poolx[j] * qm[j] + kMask * (1.0f - qm[j]);
+      mx = fmaxf(mx, poolx[j]);
+    }
+    mx = warp_max(mx);
+    float sum = 0.0f;
+    for (int j = lane; j < W; j += kWarp) {
+      poolx[j] = expf(poolx[j] - mx);
+      sum += poolx[j];
+    }
+    sum = warp_sum(sum);
+    for (int j = lane; j < W; j += kWarp) poolx[j] = poolx[j] / sum;
+  }
+  __syncthreads();
+  {
+    const float *v2qp = buf(x, v2q), *poolx = vec(x, 2);
+    float* pooled = vec(x, 3 + kLabels);
+    for (int c2 = threadIdx.x; c2 < D; c2 += blockDim.x) {
+      float a = 0.0f;
+      for (int j = 0; j < W; ++j) a += v2qp[j * D + c2] * poolx[j];
+      pooled[c2] = a;
+    }
+  }
+  __syncthreads();
+  {
+    const float *q2vp = buf(x, q2v), *pooled = vec(x, 3 + kLabels);
+    float* wide = s.buf[1];
+    for (int e = threadIdx.x; e < T * D; e += blockDim.x) {
+      const int t = e / D, c2 = e % D;
+      wide[t * D2 + c2] = q2vp[e];
+      wide[t * D2 + D + c2] = pooled[c2];
+    }
+  }
+  __syncthreads();
+  float* fuse_out = buf(x, xv);  // the streams are spent
+  dense(s.buf[1], D2, T, D2, D, cq_cat, x,
+        [=](int m, int n, float v, float) { fuse_out[m * D + n] = v; });
+  __syncthreads();
+
+  // matching head + soft label embedding
+  const Dense match = take_dense(c, D, kLabels);
+  const float* label_emb = c.take(kLabels * D);
+  float* mlog = vec(x, 3);
+  narrow_dense(buf(x, xv), T, D, kLabels, match.w, [=](int m, int n, float v) {
+    mlog[m * kLabels + n] = v + match.b[n];
   });
   __syncthreads();
+  mlog = vec(x, 3);
+  for (int t = threadIdx.x; t < T; t += blockDim.x) {
+    float l[kLabels];
+    float mx = -INFINITY;
+    for (int k = 0; k < kLabels; ++k) {
+      l[k] = mlog[t * kLabels + k];
+      if (use_gumbel) l[k] = l[k] / tau;  // the deterministic part only
+      mx = fmaxf(mx, l[k]);
+    }
+    float sum = 0.0f;
+    for (int k = 0; k < kLabels; ++k) {
+      l[k] = expf(l[k] - mx);
+      sum += l[k];
+    }
+    for (int k = 0; k < kLabels; ++k) {
+      const float prob = l[k] / sum;
+      mlog[t * kLabels + k] = prob;
+      ms_out[t * kLabels + k] = prob;
+    }
+  }
+  __syncthreads();
+  {
+    const float* fz = buf(x, xv);
+    float* outp = buf(x, xq);
+    for (int e = threadIdx.x; e < T * D; e += blockDim.x) {
+      const int t = e / D, c2 = e % D;
+      float soft = 0.0f;
+      for (int k = 0; k < kLabels; ++k)
+        soft += mlog[t * kLabels + k] * label_emb[k * D + c2];
+      outp[e] = (fz[e] + soft) * vm[t];
+    }
+  }
+  __syncthreads();
+}
+
+// The conditioned predictor: the feature encoder twice (into the spent
+// pair's buffers), then per side [LN(feats), outp] @ hidden + b -> relu
+// -> . dense + b.
+__device__ __noinline__ void predict(const Ctx& x, Cursor& c, const float* vm,
+                                     int cur, int P, float scale,
+                                     const Scratch& s, float* start_logits,
+                                     float* end_logits) {
+  const int T = x.T, D = x.D, D2 = 2 * D;
+  const int outp = cur + 1, start_f = 2 - cur, end_f = 3 - cur;
+  FEW fe;
+  fe.pos = c.take(static_cast<long>(P) * D);
+  fe.conv = take_conv_block(c, D);
+  fe.ln1 = take_ln(c, D);
+  fe.q = take_dense(c, D, D);
+  fe.k = take_dense(c, D, D);
+  fe.v = take_dense(c, D, D);
+  fe.ln2 = take_ln(c, D);
+  fe.dense = take_dense(c, D, D);
+  feature_encoder(buf(x, outp), vm, x, fe, scale, s, buf(x, start_f));
+  feature_encoder(buf(x, start_f), vm, x, fe, scale, s, buf(x, end_f));
+  const LN lns[2] = {take_ln(c, D), take_ln(c, D)};
+  Dense hidden[2], last[2];
+  hidden[0] = take_dense(c, D2, D);
+  hidden[1] = take_dense(c, D2, D);
+  last[0] = take_dense(c, D, 1);
+  last[1] = take_dense(c, D, 1);
+  for (int which = 0; which < 2; ++which) {
+    float* wide = s.buf[1];
+    layer_norm(buf(x, which ? end_f : start_f), wide, D2, T, D, lns[which]);
+    const float* op = buf(x, outp);
+    for (int e = threadIdx.x; e < T * D; e += blockDim.x)
+      wide[(e / D) * D2 + D + e % D] = op[e];
+    __syncthreads();
+    float* hid = s.buf[0];
+    dense(wide, D2, T, D2, D, hidden[which], x, [=](int m, int n, float v, float) {
+      hid[m * D + n] = fmaxf(v, 0.0f);
+    });
+    __syncthreads();
+    const float* lb = last[which].b;
+    float* out = which ? end_logits : start_logits;
+    narrow_dense(s.buf[0], T, D, 1, last[which].w,
+                 [=](int m, int, float v) { out[m] = v + lb[0]; });
+    __syncthreads();
+  }
 }
 
 struct Params {
@@ -590,186 +1172,47 @@ struct Params {
   int use_gumbel;
 };
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     fused_forward_kernel(const Params p) {
   const int b = blockIdx.x;
   const int T = p.T, W = p.W, D = p.D;
-  Dims d{T, W, D, p.H, max(T, W)};
-  const long ld = static_cast<long>(d.Lm) * D;
+  const int Lm = max(T, W);
+  const long ld = static_cast<long>(Lm) * D;
   const float scale = 1.0f / sqrtf(static_cast<float>(D / p.H));
 
-  extern __shared__ float smem[];
-  float* vm = smem;      // (T) video mask
-  float* qm = smem + T;  // (W) query mask
+  extern __shared__ __align__(16) float smem[];
+  const SmemLayout lay(T, W, D, p.H);
+  Ctx x;
+  x.T = T;
+  x.W = W;
+  x.D = D;
+  x.H = p.H;
+  x.Lm = Lm;
+  x.stage = smem;
+  x.stage_floats = lay.a_floats + lay.b_floats;
+  x.a_floats = lay.a_floats;
+  x.S = smem + lay.region;
+  x.lds = lay.score_ld;
+  x.heads = lay.heads;
+  float* vm = x.S + static_cast<long>(lay.heads) * lay.head_floats;  // (T)
+  float* qm = vm + T;                  // (W) query mask
   for (int t = threadIdx.x; t < T; t += blockDim.x)
     vm[t] = static_cast<float>(p.v_mask[static_cast<long>(b) * T + t]);
   for (int t = threadIdx.x; t < W; t += blockDim.x)
     qm[t] = static_cast<float>(p.q_mask[static_cast<long>(b) * W + t]);
 
-  float* ws = p.workspace + b * p.ws_floats;
-  float* buf[kBuffers];
-  for (int i = 0; i < kBuffers; ++i) buf[i] = ws + i * ld;
-  float* wide = ws + kBuffers * ld;                 // Lm x 4D
-  float* Sreg = wide + 4 * ld;                      // max(2H, 4) x Lm x Lm
-  float* vec = Sreg + static_cast<long>(max(2 * p.H, 4)) * d.Lm * d.Lm;
-  float *sub0 = vec, *sub1 = vec + d.Lm, *poolx = vec + 2 * d.Lm,
-        *mlog = vec + 3 * d.Lm, *pooled = vec + 3 * d.Lm + kLabels * d.Lm;
-  float *xv = buf[0], *xq = buf[1], *nv = buf[2], *nq = buf[3];
+  x.ws = p.workspace + b * p.ws_floats;
+  x.ld = ld;
   Scratch s;
-  for (int i = 0; i < 9; ++i) s.buf[i] = buf[4 + i];
-  s.S = Sreg;
-  float *q2v = buf[13], *v2q = buf[14], *fuse = buf[15], *outp = buf[16],
-        *start_f = buf[17], *end_f = buf[18];
-
-  // -- encoder: shared positional embedding + conv block on both streams
+  for (int i = 0; i < 9; ++i) s.buf[i] = buf(x, 4 + i);
   Cursor c{p.weights};
-  const float* pos = c.take(static_cast<long>(p.P) * D);
-  const ConvBlockW cb = take_conv_block(c, D);
-  const float* vfb = p.vf + static_cast<long>(b) * T * D;
-  const float* qfb = p.qf + static_cast<long>(b) * W * D;
-  for (int e = threadIdx.x; e < T * D; e += blockDim.x) xv[e] = vfb[e] + pos[e];
-  for (int e = threadIdx.x; e < W * D; e += blockDim.x) xq[e] = qfb[e] + pos[e];
-  __syncthreads();
-  conv_block(xv, T, d, cb, s.buf[0], s.buf[1]);
-  conv_block(xq, W, d, cb, s.buf[0], s.buf[1]);
-
-  // -- dual attention stack, both directions per layer
-  for (int li = 0; li < p.attn_layer; ++li) {
-    const DualW dw = take_dual(c, D);
-    dual_attn(xv, xq, vm, qm, T, W, d, dw, scale, s, nv);
-    dual_attn(xq, xv, qm, vm, W, T, d, dw, scale, s, nq);
-    float* t = xv;
-    xv = nv;
-    nv = t;
-    t = xq;
-    xq = nq;
-    nq = t;
-  }
-
-  // -- CQ fusion
-  const CQW q2v_w = take_cq(c, D);
-  const CQW v2q_w = take_cq(c, D);
-  cq_attention(xv, xq, vm, qm, T, W, d, q2v_w, s.buf[0], sub0, sub1, Sreg,
-               wide, q2v);
-  cq_attention(xq, xv, qm, vm, W, T, d, v2q_w, s.buf[0], sub0, sub1, Sreg,
-               wide, v2q);
-  const float* wp = c.take(D);
-  const Dense cq_cat = take_dense(c, 2 * D, D);
-  row_dots(v2q, W, D, wp, poolx);
-  __syncthreads();
-  if (threadIdx.x < kWarp) {  // masked softmax over W, one warp
-    const int lane = threadIdx.x;
-    float mx = -INFINITY;
-    for (int j = lane; j < W; j += kWarp) {
-      poolx[j] = poolx[j] * qm[j] + kMask * (1.0f - qm[j]);
-      mx = fmaxf(mx, poolx[j]);
-    }
-    mx = warp_max(mx);
-    float sum = 0.0f;
-    for (int j = lane; j < W; j += kWarp) {
-      poolx[j] = expf(poolx[j] - mx);
-      sum += poolx[j];
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < W; j += kWarp) poolx[j] = poolx[j] / sum;
-  }
-  __syncthreads();
-  for (int c2 = threadIdx.x; c2 < D; c2 += blockDim.x) {
-    float a = 0.0f;
-    for (int j = 0; j < W; ++j) a += v2q[j * D + c2] * poolx[j];
-    pooled[c2] = a;
-  }
-  __syncthreads();
-  const int D2 = 2 * D;
-  for (int e = threadIdx.x; e < T * D; e += blockDim.x) {
-    const int t = e / D, c2 = e % D;
-    wide[t * D2 + c2] = q2v[e];
-    wide[t * D2 + D + c2] = pooled[c2];
-  }
-  __syncthreads();
-  dense(wide, T, D2, D, cq_cat.w,
-        [&](int m, int n, float v) { fuse[m * D + n] = v + cq_cat.b[n]; });
-  __syncthreads();
-
-  // -- matching head + soft label embedding
-  const Dense match = take_dense(c, D, kLabels);
-  const float* label_emb = c.take(kLabels * D);
-  dense(fuse, T, D, kLabels, match.w, [&](int m, int n, float v) {
-    mlog[m * kLabels + n] = v + match.b[n];
-  });
-  __syncthreads();
-  float* ms_out = p.match_scores + static_cast<long>(b) * T * kLabels;
-  for (int t = threadIdx.x; t < T; t += blockDim.x) {
-    float l[kLabels];
-    float mx = -INFINITY;
-    for (int k = 0; k < kLabels; ++k) {
-      l[k] = mlog[t * kLabels + k];
-      if (p.use_gumbel) l[k] = l[k] / p.tau;  // the deterministic part only
-      mx = fmaxf(mx, l[k]);
-    }
-    float sum = 0.0f;
-    for (int k = 0; k < kLabels; ++k) {
-      l[k] = expf(l[k] - mx);
-      sum += l[k];
-    }
-    for (int k = 0; k < kLabels; ++k) {
-      const float prob = l[k] / sum;
-      mlog[t * kLabels + k] = prob;
-      ms_out[t * kLabels + k] = prob;
-    }
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < T * D; e += blockDim.x) {
-    const int t = e / D, c2 = e % D;
-    float soft = 0.0f;
-    for (int k = 0; k < kLabels; ++k)
-      soft += mlog[t * kLabels + k] * label_emb[k * D + c2];
-    outp[e] = (fuse[e] + soft) * vm[t];
-  }
-  __syncthreads();
-
-  // -- conditioned predictor
-  FEW fe;
-  fe.pos = c.take(static_cast<long>(p.P) * D);
-  fe.conv = take_conv_block(c, D);
-  fe.ln1 = take_ln(c, D);
-  fe.q = take_dense(c, D, D);
-  fe.k = take_dense(c, D, D);
-  fe.v = take_dense(c, D, D);
-  fe.ln2 = take_ln(c, D);
-  fe.dense = take_dense(c, D, D);
-  const LN start_ln = take_ln(c, D), end_ln = take_ln(c, D);
-  const Dense start_hidden = take_dense(c, D2, D);
-  const Dense end_hidden = take_dense(c, D2, D);
-  const Dense start_dense = take_dense(c, D, 1);
-  const Dense end_dense = take_dense(c, D, 1);
-  feature_encoder(outp, vm, d, fe, scale, s, start_f);
-  feature_encoder(start_f, vm, d, fe, scale, s, end_f);
-
-  float* hid = s.buf[0];
-  const float* feats[2] = {start_f, end_f};
-  const LN lns[2] = {start_ln, end_ln};
-  const Dense hidden[2] = {start_hidden, end_hidden};
-  const Dense last[2] = {start_dense, end_dense};
-  float* logits[2] = {p.start_logits + static_cast<long>(b) * T,
-                      p.end_logits + static_cast<long>(b) * T};
-  for (int which = 0; which < 2; ++which) {
-    // [LN(feats), outputs] @ hidden + b -> relu -> . dense + b
-    layer_norm(feats[which], wide, D2, T, D, lns[which]);
-    for (int e = threadIdx.x; e < T * D; e += blockDim.x)
-      wide[(e / D) * D2 + D + e % D] = outp[e];
-    __syncthreads();
-    const float* hb = hidden[which].b;
-    dense(wide, T, D2, D, hidden[which].w, [&](int m, int n, float v) {
-      hid[m * D + n] = fmaxf(v + hb[n], 0.0f);
-    });
-    __syncthreads();
-    const float* lb = last[which].b;
-    float* out = logits[which];
-    dense(hid, T, D, 1, last[which].w,
-          [&](int m, int, float v) { out[m] = v + lb[0]; });
-    __syncthreads();
-  }
+  const int cur = encode(x, c, p.vf + static_cast<long>(b) * T * D,
+                         p.qf + static_cast<long>(b) * W * D, vm, qm, p.P,
+                         p.attn_layer, scale, s);
+  fuse(x, c, vm, qm, cur, s, p.match_scores + static_cast<long>(b) * T * kLabels,
+       p.use_gumbel, p.tau);
+  predict(x, c, vm, cur, p.P, scale, s, p.start_logits + static_cast<long>(b) * T,
+          p.end_logits + static_cast<long>(b) * T);
 }
 
 }  // namespace
@@ -787,11 +1230,25 @@ extern "C" long long fused_forward_weight_floats(int D, int attn_layer, int P) {
 }
 
 extern "C" long long fused_forward_workspace_floats(int T, int W, int D, int H) {
+  (void)H;  // attention scores live in shared memory
   const long long lm = T > W ? T : W;
-  const long long heads = 2 * H > 4 ? 2 * H : 4;
-  return kBuffers * lm * D + 4 * lm * D + heads * lm * lm +
-         (3 + kLabels) * lm + D;
+  const long long n = kBuffers * lm * D + 4 * lm * lm + (3 + kLabels) * lm + D;
+  return (n + 31) / 32 * 32;  // 128-byte aligned samples
 }
+
+extern "C" long long fused_forward_smem_bytes(int T, int W, int D, int H) {
+  return SmemLayout(T, W, D, H).floats() * static_cast<long long>(sizeof(float));
+}
+
+extern "C" int fused_forward_heads_per_group(int T, int W, int D, int H) {
+  return SmemLayout(T, W, D, H).heads;
+}
+
+extern "C" int fused_forward_threads() { return kThreads; }
+
+extern "C" int fused_forward_max_len() { return kMaxLen; }
+
+extern "C" int fused_forward_max_dim() { return kMaxDim; }
 
 extern "C" int fused_forward_f32(const void* weights, const void* vf,
                                  const void* qf, const void* v_mask,
@@ -801,6 +1258,9 @@ extern "C" int fused_forward_f32(const void* weights, const void* vf,
                                  int H, int attn_layer, int P, float tau,
                                  int use_gumbel, void* stream) {
   if (B <= 0) return 0;
+  if (T < 1 || W < 1 || T > kMaxLen || W > kMaxLen || D > kMaxDim ||
+      D % 4 != 0 || H < 1 || D % H != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.weights = static_cast<const float*>(weights);
   p.vf = static_cast<const float*>(vf);
@@ -820,7 +1280,10 @@ extern "C" int fused_forward_f32(const void* weights, const void* vf,
   p.P = P;
   p.tau = tau;
   p.use_gumbel = use_gumbel;
-  const size_t smem = static_cast<size_t>(T + W) * sizeof(float);
+  const int smem = static_cast<int>(fused_forward_smem_bytes(T, W, D, H));
+  const cudaError_t rc = cudaFuncSetAttribute(
+      fused_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
   fused_forward_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,13 +14,17 @@
 // Bound on the H100: bytes.  It reads three (B, T) arrays and writes two (B,)
 // ones: 3*B*T*4 + 2*B*4 bytes, about 74 KB at B=96, T=64, i.e. ~22 ns at
 // 3.35 TB/s.  So one launch costs more than the work: the kernel is
-// launch-bound.  The design keeps it to a single launch with no scratch in
+// launch-bound, and no design can reach that bound: it lies below a launch's
+// latency.  The design keeps it to a single launch with no scratch in
 // device memory: one warp per row, kRowsPerBlock rows per block, the row's
 // probabilities in shared memory, warp shuffles for the max, sum and argmax
 // reductions, expf (not __expf) so the probabilities match the plain
-// version's.  Each lane rescans the row for the running maxima of its own
-// positions, O(T^2/32) shared-memory reads: simple, and small at T <= 100,
-// but it makes the in-kernel time grow with T^2 (PERF.md).
+// version's.  The running maxima are warp scans over 32-position chunks:
+// a prefix max of s (__shfl_up_sync), walking the chunks forwards, and a
+// suffix max of e (__shfl_down_sync), walking them backwards, each carrying
+// the maximum across chunks: O(T/32) steps a lane, where rescanning the
+// row for each position would be O(T^2/32).  max is exact and independent
+// of order, so every product and index equals the plain decode's.
 //
 // Plain C interface, bound from Python with ctypes; the entry point returns
 // cudaGetLastError() so a refused launch is reported to the caller.
@@ -103,24 +107,48 @@ __global__ void span_decode_kernel(const float* __restrict__ start_logits,
   masked_softmax_row(end_logits + off, mask + off, ep, T, lane);
   __syncwarp();
 
-  // Each lane owns positions lane, lane+32, ...; it walks them in order and
-  // keeps the first maximum, and warp_argmax keeps the smallest index.
-  float best_s = -1.0f, best_e = -1.0f;
+  // Each lane owns positions lane, lane+32, ...  Start: s_k * max_{j>=k} e_j,
+  // chunks walked backwards, so a lane keeps the LAST maximum it meets (>=),
+  // which is its smallest index; end: e_k * max_{i<=k} s_i, chunks walked
+  // forwards, keeping the first (>).  warp_argmax then keeps the smallest
+  // index of the warp.  Positions past T read 0, below every probability's
+  // maximum, so they change no running maximum.
+  const int chunks = (T + kWarp - 1) / kWarp;
+  float carry = 0.0f, best_s = -1.0f, best_e = -1.0f;
   int arg_s = 0, arg_e = 0;
-  for (int k = lane; k < T; k += kWarp) {
-    float e_max = 0.0f;  // max_{j>=k} e_j
-    for (int j = k; j < T; ++j) e_max = fmaxf(e_max, ep[j]);
-    float s_max = 0.0f;  // max_{i<=k} s_i
-    for (int i = 0; i <= k; ++i) s_max = fmaxf(s_max, sp[i]);
-    const float r = sp[k] * e_max;
-    const float c = ep[k] * s_max;
-    if (r > best_s) {
-      best_s = r;
-      arg_s = k;
+  for (int c = chunks - 1; c >= 0; --c) {
+    const int k = c * kWarp + lane;
+    float m = k < T ? ep[k] : 0.0f;  // suffix max of e within the chunk
+    for (int o = 1; o < kWarp; o <<= 1) {
+      const float y = __shfl_down_sync(kFull, m, o);
+      if (lane + o < kWarp) m = fmaxf(m, y);
     }
-    if (c > best_e) {
-      best_e = c;
-      arg_e = k;
+    m = fmaxf(m, carry);
+    carry = __shfl_sync(kFull, m, 0);
+    if (k < T) {
+      const float r = sp[k] * m;
+      if (r >= best_s) {
+        best_s = r;
+        arg_s = k;
+      }
+    }
+  }
+  carry = 0.0f;
+  for (int c = 0; c < chunks; ++c) {
+    const int k = c * kWarp + lane;
+    float m = k < T ? sp[k] : 0.0f;  // prefix max of s within the chunk
+    for (int o = 1; o < kWarp; o <<= 1) {
+      const float y = __shfl_up_sync(kFull, m, o);
+      if (lane >= o) m = fmaxf(m, y);
+    }
+    m = fmaxf(m, carry);
+    carry = __shfl_sync(kFull, m, kWarp - 1);
+    if (k < T) {
+      const float e = ep[k] * m;
+      if (e > best_e) {
+        best_e = e;
+        arg_e = k;
+      }
     }
   }
   arg_s = warp_argmax(best_s, arg_s);

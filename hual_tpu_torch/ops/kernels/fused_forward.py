@@ -4,6 +4,8 @@ It replaces the TPU kernel ``hual_tpu/ops/pallas/fused_forward.py``.  For
 tensors on the CPU it runs the plain version, ``ops.fused_forward.
 forward_math``; for CUDA tensors it launches the kernel or raises, and never
 falls back.  ``fused_forward.launches`` counts the kernel's launches.
+The kernel takes T and W up to :data:`MAX_LEN` and D up to :data:`MAX_DIM`;
+:func:`check_kernel_shape` is that limit, checked before every launch.
 """
 
 from __future__ import annotations
@@ -15,6 +17,12 @@ import torch
 
 from hual_tpu_torch.ops.fused_forward import PackedWeights, forward_math
 from hual_tpu_torch.ops.kernels import build
+
+# The kernel's shape limit (kMaxLen, kMaxDim in csrc/fused_forward.cu): the
+# q, k and v rows of an attention and one head's scores must fit in a
+# block's 227 KB of shared memory.
+MAX_LEN = 100
+MAX_DIM = 128
 
 
 @functools.cache
@@ -28,13 +36,45 @@ def _library():
     lib.fused_forward_weight_floats.restype = ctypes.c_longlong
     lib.fused_forward_workspace_floats.argtypes = [ctypes.c_int] * 4
     lib.fused_forward_workspace_floats.restype = ctypes.c_longlong
+    lib.fused_forward_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.fused_forward_smem_bytes.restype = ctypes.c_longlong
+    lib.fused_forward_heads_per_group.argtypes = [ctypes.c_int] * 4
+    lib.fused_forward_heads_per_group.restype = ctypes.c_int
+    lib.fused_forward_threads.restype = ctypes.c_int
+    lib.fused_forward_max_len.restype = ctypes.c_int
+    lib.fused_forward_max_dim.restype = ctypes.c_int
     return lib
 
 
 def workspace_floats(T: int, W: int, D: int, num_heads: int) -> int:
-    """f32 values of per-sample workspace the kernel needs (~0.8 MB a sample
-    at T=64, D=128, 8 heads)."""
+    """f32 values of per-sample workspace the kernel needs (0.82 MB a sample
+    at T=64, W=13, D=128)."""
     return int(_library().fused_forward_workspace_floats(T, W, D, num_heads))
+
+
+def smem_bytes(T: int, W: int, D: int, num_heads: int) -> int:
+    """Dynamic shared memory of one block (one sample)."""
+    return int(_library().fused_forward_smem_bytes(T, W, D, num_heads))
+
+
+def heads_per_group(T: int, W: int, D: int, num_heads: int) -> int:
+    """Heads whose scores the kernel holds in shared memory at once."""
+    return int(_library().fused_forward_heads_per_group(T, W, D, num_heads))
+
+
+def threads_per_block() -> int:
+    return int(_library().fused_forward_threads())
+
+
+def check_kernel_shape(T: int, W: int, D: int) -> None:
+    """Raises ``ValueError`` unless the kernel takes T clips, W words and
+    width D: T and W in [1, MAX_LEN], D a multiple of 4 up to MAX_DIM."""
+    if not (1 <= T <= MAX_LEN and 1 <= W <= MAX_LEN):
+        raise ValueError(f"fused_forward: the kernel takes T and W in [1, "
+                         f"{MAX_LEN}] (its shared-memory tiles), got T={T}, W={W}")
+    if not (D <= MAX_DIM and D % 4 == 0):
+        raise ValueError(f"fused_forward: the kernel takes D a multiple of 4 up "
+                         f"to {MAX_DIM} (its shared-memory tiles), got D={D}")
 
 
 def _check(packed: PackedWeights, vf, qf, v_mask, q_mask, attn_layer: int,
@@ -89,6 +129,7 @@ def fused_forward(packed: PackedWeights, vf: torch.Tensor, qf: torch.Tensor,
         raise ValueError(f"fused_forward: unsupported device {vf.device}")
     B, T, D = vf.shape
     W = qf.shape[1]
+    check_kernel_shape(T, W, D)
     lib = _library()
     expected = lib.fused_forward_weight_floats(D, attn_layer, packed.max_pos)
     if packed.buffer.numel() != expected:

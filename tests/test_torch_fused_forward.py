@@ -219,3 +219,29 @@ def test_wrapper_input_checks():
     meta_packed = type(packed)(packed.buffer.to("meta"), packed.layout, 1)
     with pytest.raises(ValueError, match="unsupported device"):
         k2.fused_forward(meta_packed, *meta, **kw)
+
+
+@pytest.mark.parametrize("T,Wq,D,ok", [
+    (64, 13, 128, True),     # Charades: the sweep's query length
+    (64, 30, 128, True),     # Charades: the serve path's word bound
+    (100, 30, 128, True),    # ActivityNet width
+    (17, 5, 128, True),      # ragged in every tile dimension
+    (1, 1, 16, True),
+    (100, 100, 128, True),   # the limit itself
+    (101, 13, 128, False),
+    (64, 101, 128, False),
+    (0, 13, 128, False),
+    (64, 0, 128, False),
+    (64, 13, 256, False),
+    (64, 13, 30, False),
+])
+def test_kernel_shape_limit(T, Wq, D, ok):
+    """The kernel's one shape limit: T and W in [1, MAX_LEN], D a multiple
+    of 4 up to MAX_DIM; every shape of the main paths (T in {64, 100},
+    W <= 30, D = 128) is accepted."""
+    assert (k2.MAX_LEN, k2.MAX_DIM) == (100, 128)
+    if ok:
+        k2.check_kernel_shape(T, Wq, D)
+    else:
+        with pytest.raises(ValueError, match=r"the kernel takes (T and W|D)"):
+            k2.check_kernel_shape(T, Wq, D)

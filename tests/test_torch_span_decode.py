@@ -106,3 +106,35 @@ def test_masking_equals_jax():
     probs = torch.softmax(scores + tb, dim=-1)
     torch.testing.assert_close(probs[0, 0], torch.full((8, 5), 0.2),
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("T", [64, 100, 128])
+def test_decode_crafted_rows_equal_jax_and_pallas(T):
+    """Rows the Hopper kernel's chunked warp scans must decode exactly: the
+    suffix maximum of the end probabilities in a later 32-position chunk
+    than the start, all-equal probabilities over a partial length, and a
+    prefix maximum carried across chunks."""
+    B = 4
+    rng = np.random.default_rng(T)
+    sl = rng.normal(size=(B, T)).astype(np.float32)
+    el = rng.normal(size=(B, T)).astype(np.float32)
+    lens = np.array([T, T // 2 + 3, T, T - 5], np.int32)
+    el[0] = -5.0
+    el[0, T - 2] = sl[0, 0] = 5.0           # start in chunk 0, end in the last
+    sl[1] = el[1] = -0.75                   # all-equal probabilities
+    sl[2] = -5.0
+    sl[2, 3] = 4.0                          # the start maximum early ...
+    el[2] = -5.0
+    el[2, 40:] = np.linspace(0.0, 1.0, T - 40)  # ... the end maximum late
+    jmask = jax_sequence_mask(jnp.asarray(lens), T)
+    js, je = jax_span_decode(jnp.asarray(sl), jnp.asarray(el), jmask)
+    ps, pe = span_decode_pallas(jnp.asarray(sl), jnp.asarray(el), jmask,
+                                interpret=True)
+    ts, te = span_decode(torch.from_numpy(sl), torch.from_numpy(el),
+                         sequence_mask(torch.from_numpy(lens), T))
+    for ref_s, ref_e in ((js, je), (ps, pe)):
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(ref_s))
+        np.testing.assert_array_equal(te.numpy(), np.asarray(ref_e))
+    assert (ts[0].item(), te[0].item()) == (0, T - 2)
+    assert (ts[1].item(), te[1].item()) == (0, 0)
+    assert (ts[2].item(), te[2].item()) == (3, T - 1)
