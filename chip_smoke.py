@@ -46,8 +46,21 @@ line; any failure exits non-zero before the last line:
    of batches, wall time and samples/s, a torch.profiler breakdown of one
    test sweep per backend with the device's idle share, and the pickle's
    schema;
-8. kernels: one entry per ported kernel with its launches on the main
-   paths and its check against the plain version.
+8. train_charades: on the same dataset and device table, (a) one train
+   step at drop 0 on the card against the same step on the CPU, at
+   Charades and at ActivityNet width: loss components, grads and parameter
+   deltas within the CPU tests' bounds, K1's indices equal to the plain
+   decode's; (b) ``Trainer.train()`` for 2 epochs (the reference's 50, cut)
+   at batch 16, drop 0.2, ``span_decode: pallas``, ``sweep_backend:
+   fused``: per epoch the train seconds, steps/s, samples/s, mean loss, test
+   R@1/mIoU and the launches of K1 (one a train step and a test batch) and
+   K2 (one a test batch); the loss must be finite and fall; (c) a
+   torch.profiler breakdown of 20 train steps; (d) a resume check on 1,024
+   queries under deterministic algorithms, bit-equal to the uninterrupted
+   run; (e) the MC sweep at ``mc_droprate`` 0.5 with both backends, and
+   live gumbel passes on a subset;
+9. kernels: one entry per ported kernel with its launches on the main
+   paths and its check against the plain version; the seconds per phase.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -69,25 +82,33 @@ import sys
 import tempfile
 import time
 
-import numpy as np
-import torch
+# cuBLAS reads this when it starts; the resume check needs it for
+# deterministic products (train_charades)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 # imported before anything is printed: outside a checkout this fails at once
-from hual_tpu_torch.config import Config, apply_matmul_precision
-from hual_tpu_torch.data.datasets import gen_or_load_dataset
-from hual_tpu_torch.data.features import FeatureStore, visual_feature_sampling
-from hual_tpu_torch.data.loader import EvalLoader
-from hual_tpu_torch.data.vocab import PAD, UNK
-from hual_tpu_torch.models.seqpan import SeqPAN
-from hual_tpu_torch.ops import decode
-from hual_tpu_torch.ops.fused_forward import (PackedWeights, forward_math,
-                                              pack_weights)
-from hual_tpu_torch.ops.kernels import build
-from hual_tpu_torch.ops.kernels import fused_forward as k2
-from hual_tpu_torch.ops.kernels import span_decode as k1
-from hual_tpu_torch.runtime import steps
-from hual_tpu_torch.runtime.trainer import Trainer
-from hual_tpu_torch.serve import Predictor, export_bundle
+from hual_tpu_torch.config import Config, apply_matmul_precision  # noqa: E402
+from hual_tpu_torch.data.datasets import gen_or_load_dataset  # noqa: E402
+from hual_tpu_torch.data.features import (FeatureStore,  # noqa: E402
+                                          visual_feature_sampling)
+from hual_tpu_torch.data.labels_device import make_span_labels_device  # noqa: E402
+from hual_tpu_torch.data.loader import EvalLoader  # noqa: E402
+from hual_tpu_torch.data.vocab import PAD, UNK  # noqa: E402
+from hual_tpu_torch.models.seqpan import SeqPAN  # noqa: E402
+from hual_tpu_torch.ops import decode  # noqa: E402
+from hual_tpu_torch.ops.fused_forward import (PackedWeights,  # noqa: E402
+                                              forward_math, pack_weights)
+from hual_tpu_torch.ops.kernels import build  # noqa: E402
+from hual_tpu_torch.ops.kernels import fused_forward as k2  # noqa: E402
+from hual_tpu_torch.ops.kernels import span_decode as k1  # noqa: E402
+from hual_tpu_torch.ops.optim import make_optimizer  # noqa: E402
+from hual_tpu_torch.runtime import steps  # noqa: E402
+from hual_tpu_torch.runtime.trainer import Trainer  # noqa: E402
+from hual_tpu_torch.serve import Predictor, export_bundle  # noqa: E402
+from hual_tpu_torch.weights import _leaves, load_jax_params, to_jax_params  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
@@ -107,6 +128,7 @@ MAIN_SHAPE = (96, 64)       # the span decode of one batch-96 Charades chunk
 # NVIDIA's data-sheet peaks of the H100 SXM at 700 W: device memory bytes/s,
 # fp32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S, FP32_FLOPS = 3.35e12, 67e12
+CARD: list[str] = []        # nvidia-smi's name and power limit, once known
 
 
 def emit(obj) -> None:
@@ -184,12 +206,13 @@ def launch_ms(profile: dict) -> tuple[float, float]:
     return k["ms_per_call"] / k["launches_per_call"], k["launches_per_call"]
 
 
-def device_profile(fn, calls: int = 3, top: int = 12) -> dict:
+def device_profile(fn, calls: int = 3, top: int = 12, match: str = "") -> dict:
     """Device time by kernel over ``calls`` calls of ``fn`` (torch.profiler).
 
     The device's idle share is the part of the span from the first kernel's
     start to the last one's end in which no kernel ran (one stream, so
-    kernels do not overlap).
+    kernels do not overlap).  ``match`` adds the time and launches of the
+    kernels whose name holds it.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -219,7 +242,14 @@ def device_profile(fn, calls: int = 3, top: int = 12) -> dict:
         entry[0] += e.time_range.elapsed_us()
         entry[1] += 1
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    return {"calls": calls, "kernels_per_call": len(kernels) / calls,
+    matched = {}
+    if match:
+        hits = [v for name, v in by_name.items() if match in name]
+        us, n = sum(h[0] for h in hits), sum(h[1] for h in hits)
+        matched = {"matched": {"name": match, "ms_per_call": us / calls / 1e3,
+                               "launches_per_call": n / calls,
+                               "busy_share": us / busy_us}}
+    return {"calls": calls, "kernels_per_call": len(kernels) / calls, **matched,
             "busy_ms_per_call": busy_us / calls / 1e3,
             "span_ms_per_call": span_us / calls / 1e3,
             "device_idle_share": 1.0 - busy_us / span_us if span_us else None,
@@ -234,6 +264,7 @@ def environment() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi.splitlines()[0], flush=True)
+    CARD.append(smi.splitlines()[0])
     apply_matmul_precision("default")
     emit({"env": {"nvidia_smi": smi, "torch": torch.__version__,
                   "cuda": torch.version.cuda, "python": sys.version.split()[0],
@@ -855,33 +886,366 @@ def sweep_phase(workdir: str, config, store, dataset) -> dict:
         "timing": "seconds: host clock around Trainer.test() / infer_trainset(), "
                   "each ending in a host fetch (infer_trainset includes writing "
                   "the pickle); profile: one test() sweep under torch.profiler"}})
-    return runs["fused"]["launches"]
+    return runs["fused"]["launches"], trainers["flax"].export_device_features()
+
+
+# -- phase 8 ------------------------------------------------------------------
+# the train section of configs/charades/SeqPAN.yaml; 50 epochs cut to 2
+TRAIN = dict(epochs=2, batch_size=16, lr=1e-4, droprate=0.2, clip_norm=1.0,
+             weight_decay=0.01)
+RESUME_QUERIES, PROFILE_STEPS, GUMBEL_QUERIES = 1024, 20, 960
+
+
+def train_config(config, ckpt_dir: str, **train):
+    cfg = copy.deepcopy(config)
+    for k, v in {**TRAIN, "sweep_backend": "fused", **train}.items():
+        setattr(cfg.train, k, v)
+    cfg.paths.ckpt_dir = ckpt_dir
+    return cfg
+
+
+def random_batch(rng, B: int, T: int, W: int, C: int, n_words: int, n_chars: int):
+    """A labelled batch of random queries and features on the card."""
+    v_len = rng.integers(1, T + 1, B).astype(np.int32)
+    v_len[:2] = (1, T)
+    q_len = rng.integers(1, W + 1, B)
+    word_ids = np.where(np.arange(W)[None] < q_len[:, None],
+                        rng.integers(1, n_words, (B, W)), 0).astype(np.int32)
+    char_ids = rng.integers(1, n_chars, (B, W, C)).astype(np.int32)
+    char_ids[word_ids == 0] = 0
+    s = rng.integers(0, v_len).astype(np.int32)
+    batch = {"video_features": rng.normal(size=(B, T, CHARADES["vdim"])).astype(np.float32),
+             "video_seq_len": v_len, "word_ids": word_ids, "char_ids": char_ids,
+             "s_ind": s, "e_ind": np.minimum(s + rng.integers(0, 12, B), v_len - 1),
+             "duration": rng.uniform(10, 40, B).astype(np.float32)}
+    batch = {k: torch.from_numpy(np.asarray(v)).to(DEVICE) for k, v in batch.items()}
+    y1, y2, match, inner = make_span_labels_device(
+        batch["s_ind"], batch["e_ind"], batch["video_seq_len"], T)
+    batch.update(y1=y1, y2=y2, match_labels=match, inner_labels=inner)
+    return batch
+
+
+def step_against_cpu(widths: dict, batch: dict, word_vectors) -> dict:
+    """One train step at drop 0 of the same weights on the card and on the
+    CPU, held to tests/test_torch_train_step.py's bounds (card against CPU
+    here): losses rtol 1e-5, clipped grads rtol 1e-3 / atol
+    1e-6*max(1,max|g|), deltas rtol 2e-2 / atol 1e-5.  label_emb is moved
+    off its orthogonal init, where the penalty's gradient is rounding noise."""
+    gen = torch.Generator().manual_seed(SEED + 4)
+    model = SeqPAN(**widths, span_decode="pallas", generator=gen)
+    with torch.no_grad():
+        model.label_emb.add_(0.1 * torch.randn(model.label_emb.shape, generator=gen))
+    cpu = copy.deepcopy(model)
+    card = model.to(DEVICE)
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    with torch.no_grad():
+        out = card(batch, word_vectors)
+    plain = decode.span_decode(out["start_logits"], out["end_logits"], out["v_mask"])
+    check(torch.equal(out["start_index"], plain[0]) and torch.equal(out["end_index"], plain[1]),
+          f"train step at {widths['max_vlen']}: K1's indices differ from the plain decode")
+    opts = {"card": make_optimizer(card, 1.0, 0.01), "cpu": make_optimizer(cpu, 1.0, 0.01)}
+    before = {"card": to_jax_params(card), "cpu": to_jax_params(cpu)}
+    k1.span_decode.launches = 0
+    got = steps.train_step(card, opts["card"], batch, word_vectors, TRAIN["lr"],
+                           torch.Generator(DEVICE), drop_rate=0.0)
+    torch.cuda.synchronize()
+    check(k1.span_decode.launches == 1,
+          f"the train step launched K1 {k1.span_decode.launches} times")
+    want = steps.train_step(cpu, opts["cpu"], cpu_batch, word_vectors.cpu(), TRAIN["lr"],
+                            torch.Generator(), drop_rate=0.0)
+    loss_err = max(abs(got[k].item() - want[k].item()) / abs(want[k].item())
+                   for k in ("loc_loss", "match_loss", "align_loss", "loss"))
+    check(loss_err <= 1e-5, f"train step losses: rel err {loss_err}")
+    step_ious = steps.device_ious(out["start_index"], out["end_index"], batch["s_ind"],
+                                  batch["e_ind"], batch["video_seq_len"], batch["duration"])
+    check(torch.equal(got["ious"], step_ious), "the step's IoUs are not its decode's")
+    grad_err = delta_err = 0.0
+    to_jax = {key: move for key, _, _, move in _leaves(cpu)}
+    for key, g_card, g_cpu in zip(opts["cpu"].keys, opts["card"].mu, opts["cpu"].mu):
+        g, w = (to_jax[key](t.cpu().numpy()) / 0.1 for t in (g_card, g_cpu))
+        bound = 1e-3 * np.abs(w) + 1e-6 * max(1.0, float(np.abs(w).max()))
+        grad_err = max(grad_err, float((np.abs(g - w) / bound).max()))
+    after = {"card": to_jax_params(card), "cpu": to_jax_params(cpu)}
+    for key in after["cpu"]:
+        d = after["card"][key] - before["card"][key]
+        w = after["cpu"][key] - before["cpu"][key]
+        delta_err = max(delta_err, float((np.abs(d - w) / (1e-5 + 2e-2 * np.abs(w))).max()))
+    check(grad_err <= 1.0 and delta_err <= 1.0,
+          f"train step at T={widths['max_vlen']}: grads {grad_err}, deltas {delta_err} "
+          "of their bounds")
+    return {"T": widths["max_vlen"], "char_dim": widths["char_dim"],
+            "B": int(batch["word_ids"].shape[0]), "loss": got["loss"].item(),
+            "loss_max_rel_err": loss_err, "grad_err_of_bound": grad_err,
+            "delta_err_of_bound": delta_err, "k1_launches": 1,
+            "ious_card_vs_cpu_equal": bool(torch.equal(got["ious"].cpu(), want["ious"]))}
+
+
+def train_run(cfg, dataset, store, table, callback=None):
+    tr = Trainer(cfg, dataset, store, logger=logging.getLogger("chip_smoke.train"),
+                 device_features=table, device=DEVICE)
+    tr.init_state()
+    return tr, tr.train(epoch_callback=callback)
+
+
+class Stop(Exception):
+    pass
+
+
+def resume_check(workdir: str, config, dataset, store, table) -> dict:
+    """2 epochs on a subset, uninterrupted and stopped after epoch 0 then
+    resumed in a fresh Trainer, under deterministic algorithms: final
+    params, best R@1@0.7 and best checkpoint must be bit-equal."""
+    sub = dict(dataset, train_set=dataset["train_set"][:RESUME_QUERIES])
+    cfgs = {run: train_config(config, os.path.join(workdir, f"resume_{run}"),
+                              save_state_every=1) for run in ("a", "b")}
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        a, _ = train_run(cfgs["a"], sub, store, table)
+
+        def stop(epoch, _):
+            if epoch == 0:
+                raise Stop
+
+        try:
+            train_run(cfgs["b"], sub, store, table, stop)
+            check(False, "the stop after epoch 0 did not happen")
+        except Stop:
+            pass
+        model_dir = os.path.abspath(cfgs["b"].model_dir())
+        c = Trainer(cfgs["b"], sub, store, logger=logging.getLogger("chip_smoke.train"),
+                    device_features=table, device=DEVICE)
+        c.init_state(seed=SEED)                  # other weights: the resume replaces them
+        c.load_state(os.path.join(model_dir, "state.pt"))
+        resumed_at = (c.state.epoch, c.state.step)
+        c.train()
+        seconds = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    pa, pc = a.model.state_dict(), c.model.state_dict()
+    same = all(torch.equal(pa[k], pc[k]) for k in pa)
+    with np.load(os.path.join(os.path.abspath(cfgs["a"].model_dir()), "best.npz")) as fa, \
+            np.load(os.path.join(model_dir, "best.npz")) as fc:
+        same_best = set(fa) == set(fc) and all(np.array_equal(fa[k], fc[k]) for k in fa)
+    check(same and same_best and a.state.best_r1i7 == c.state.best_r1i7
+          and a.state.step == c.state.step,
+          f"resume: params equal {same}, best checkpoint equal {same_best}, best "
+          f"{a.state.best_r1i7} vs {c.state.best_r1i7}, step {a.state.step} vs {c.state.step}")
+    return {"queries": RESUME_QUERIES, "epochs": TRAIN["epochs"], "resumed_at": resumed_at,
+            "steps": c.state.step, "best_r1i7": c.state.best_r1i7, "bit_equal": True,
+            "seconds_three_runs": seconds,
+            "deterministic": "torch.use_deterministic_algorithms(True), "
+                             "CUBLAS_WORKSPACE_CONFIG=" + os.environ["CUBLAS_WORKSPACE_CONFIG"]}
+
+
+def mc_sweeps(workdir: str, config, dataset, store, table, flat) -> dict:
+    """The AL sweep at mc_droprate 0.5, timed, with both backends; live
+    gumbel passes on a subset."""
+    out = {}
+    for backend in ("flax", "fused"):
+        cfg = train_config(config, "", sweep_backend=backend, mc_droprate=0.5)
+        tr = Trainer(cfg, dataset, store, logger=logging.getLogger("chip_smoke.mc"),
+                     device_features=table, device=DEVICE)
+        tr.load_params(flat)
+        pairs, sels = tr._sweep_sels("infer", tr.train_set, cfg.infer_batch_size)
+        k1.span_decode.launches = k2.fused_forward.launches = 0   # main path starts
+        t0 = time.perf_counter()
+        metrics = tr.infer_trainset(save_path=os.path.join(workdir, f"mc_{backend}.pkl"))
+        seconds = time.perf_counter() - t0
+        launches = {"fused_forward": k2.fused_forward.launches,  # main path ends
+                    "span_decode": k1.span_decode.launches}
+        n = len(pairs)
+        check(launches == {"fused_forward": n if backend == "fused" else 0,
+                           "span_decode": n},
+              f"mc sweep {backend}: launches {launches} for {n} batches")
+        sweep = steps.fused_infer_sweep if backend == "fused" else steps.infer_sweep
+        part = sels[:8]
+        clean = sweep(tr.model, tr._train_data, part, tr.word_vectors)
+        live = sweep(tr.model, tr._train_data, part, tr.word_vectors, 0.5, cfg.train.seed)
+        for k in ("start_logits", "end_logits", "match_scores", "start_index", "end_index"):
+            check(torch.equal(live[k], clean[k]), f"mc sweep {backend}: the clean {k} moved")
+        valid = (torch.arange(CHARADES["max_vlen"], device=DEVICE)
+                 < tr._train_data["v_len"][part.reshape(-1)][:, None]).reshape(*part.shape, -1)
+        share = {f"{a}_vs_{b}": float((live[a][valid] != live[b][valid]).float().mean())
+                 for a, b in (("start_logits1", "start_logits"),
+                              ("start_logits1", "start_logits2"),
+                              ("end_logits2", "end_logits"))}
+        check(min(share.values()) > 0.9, f"mc sweep {backend}: passes not live: {share}")
+        out[backend] = {"batches": n, "launches": launches, "seconds": seconds,
+                        "samples_per_s": len(tr.train_set) / seconds,
+                        "infer_trainset": metrics, "logits_differ_share": share}
+    # gumbel noise live at mc 0 on a subset
+    sub = dict(dataset, train_set=dataset["train_set"][:GUMBEL_QUERIES])
+    cfg = train_config(config, "")
+    cfg.loss.no_gumbel = False
+    tr = Trainer(cfg, sub, store, logger=logging.getLogger("chip_smoke.mc"),
+                 device_features=table, device=DEVICE)
+    tr.load_params(flat)
+    pairs, sels = tr._sweep_sels("infer", tr.train_set, cfg.infer_batch_size)
+    k1.span_decode.launches = k2.fused_forward.launches = 0
+    live = steps.fused_infer_sweep(tr.model, tr._train_data, sels, tr.word_vectors,
+                                   0.0, cfg.train.seed)
+    check(k2.fused_forward.launches == k1.span_decode.launches == len(pairs),
+          "gumbel sweep launches")
+    gumbel = {"queries": GUMBEL_QUERIES, "batches": len(pairs),
+              "differ_share": float((live["start_logits1"] != live["start_logits2"])
+                                    .float().mean()),
+              "clean_differ_share": float((live["start_logits1"] != live["start_logits"])
+                                          .float().mean())}
+    check(gumbel["differ_share"] > 0.5 and gumbel["clean_differ_share"] > 0.5,
+          f"gumbel passes not live: {gumbel}")
+    out["gumbel_fused"] = gumbel
+    return out
+
+
+def train_phase(workdir: str, config, store, dataset, table) -> dict:
+    """Phase 8; returns the launch counts of the train and MC paths."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 5)
+    cfg = train_config(config, os.path.join(workdir, "ckpt"))
+    probe = Trainer(cfg, dataset, store, logger=logging.getLogger("chip_smoke.train"),
+                    device_features=table, device=DEVICE)
+    sel = torch.from_numpy(rng.permutation(len(probe.train_set))[:TRAIN["batch_size"]]
+                           .astype(np.int32)).to(DEVICE)
+    batch = steps.gather_batch(probe._train_data, sel, with_labels=True)
+    n_chars = dataset["n_chars"]
+    widths = {k: v for k, v in CHARADES.items() if k not in ("name", "max_tlen")}
+    widths["num_chars"] = n_chars
+    step_rows = [step_against_cpu(widths, batch, probe.word_vectors)]
+    anet_widths = {k: v for k, v in ANET.items() if k not in ("name", "max_tlen")}
+    anet_widths["num_chars"] = n_chars
+    anet = random_batch(rng, TRAIN["batch_size"], ANET["max_vlen"], MAX_WLEN, MAX_CLEN,
+                        len(probe.word_vectors) + 2, n_chars)
+    step_rows.append(step_against_cpu(anet_widths, anet, probe.word_vectors))
+    del probe
+
+    # (b) Trainer.train() for 2 epochs
+    epochs = []
+    here = os.getcwd()
+    os.chdir(workdir)                        # train() writes ./logs/<task>/
+    try:
+        tr = Trainer(cfg, dataset, store, logger=logging.getLogger("chip_smoke.train"),
+                     device_features=table, device=DEVICE)
+        tr.init_state()
+        n_steps = math.ceil(len(tr.train_set) / TRAIN["batch_size"])
+        n_test = math.ceil(len(tr.test_set) / cfg.eval_batch_size)
+
+        def on_epoch(epoch, test_m):
+            epochs.append({"epoch": epoch, "test": test_m, **tr.last_epoch_wall,
+                           "span_decode_launches": k1.span_decode.launches,
+                           "fused_forward_launches": k2.fused_forward.launches})
+            k1.span_decode.launches = k2.fused_forward.launches = 0
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k1.span_decode.launches = k2.fused_forward.launches = 0   # main path starts
+        t0 = time.perf_counter()
+        best = tr.train(epoch_callback=on_epoch)
+        train_seconds = time.perf_counter() - t0
+        tr.close()
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join("logs", cfg.task, f"metrics_{cfg.suffix}.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+    finally:
+        os.chdir(here)
+    losses = [r["train"]["loss"] for r in records if r["kind"] == "epoch"]
+    launches = {"span_decode": sum(e["span_decode_launches"] for e in epochs),
+                "fused_forward": sum(e["fused_forward_launches"] for e in epochs)}
+    for e, rec in zip(epochs, (r for r in records if r["kind"] == "epoch")):
+        check(e["span_decode_launches"] == n_steps + n_test
+              and e["fused_forward_launches"] == n_test,
+              f"epoch {e['epoch']}: K1 {e['span_decode_launches']}, K2 "
+              f"{e['fused_forward_launches']} for {n_steps} steps, {n_test} test batches")
+        e.update(loss=rec["train"]["loss"], train_metrics=rec["train"],
+                 steps_per_s=n_steps / e["train_s"],
+                 samples_per_s=len(tr.train_set) / e["train_s"])
+    check(len(losses) == TRAIN["epochs"] and all(math.isfinite(x) for x in losses)
+          and losses[-1] < losses[0], f"train losses {losses}")
+    flat = to_jax_params(tr.model)
+
+    # (c) where a train step's time goes
+    order = torch.randperm(len(tr.train_set), generator=torch.Generator().manual_seed(SEED))
+    sels = [order[i * 16:(i + 1) * 16].to(DEVICE) for i in range(PROFILE_STEPS + 1)]
+    count = iter(range(10 ** 6))
+
+    def one_step():
+        i = next(count)
+        b = steps.gather_batch(tr._train_data, sels[i % len(sels)], with_labels=True)
+        steps.train_step(tr.model, tr.state.opt, b, tr.word_vectors, TRAIN["lr"],
+                         steps.make_generator(DEVICE, SEED, i), drop_rate=TRAIN["droprate"])
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PROFILE_STEPS):
+        one_step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+    profile = device_profile(one_step, calls=PROFILE_STEPS, top=12, match="span_decode")
+
+    resume = resume_check(workdir, config, dataset, store, table)
+    mc = mc_sweeps(workdir, config, dataset, store, table, flat)
+    emit({"train_charades": {
+        "card": CARD[0], "reduced": {"epochs": "50 -> 2"},
+        "config": dict(TRAIN, span_decode="pallas", sweep_backend="fused",
+                       T=CHARADES["max_vlen"], dim=CHARADES["dim"],
+                       heads=CHARADES["num_heads"], attn_layer=CHARADES["attn_layer"]),
+        "train_queries": len(tr.train_set), "steps_per_epoch": n_steps,
+        "test_batches_per_epoch": n_test,
+        "step_vs_cpu": step_rows,
+        "epochs": epochs, "train_seconds_total": train_seconds,
+        "best": {k: best[k] for k in ("r1i7", "epoch", "improved")},
+        "max_memory_allocated_bytes": peak, "launches": launches,
+        "step_ms_host_clock": step_ms, "profile_train_step": profile,
+        "resume": resume, "mc_sweep": mc, "seconds": time.perf_counter() - t_phase,
+        "timing": "train_s: host clock from the epoch's start to its one fetch of "
+                  "losses and IoUs; step_ms_host_clock: 20 steps after training, "
+                  "ending in a synchronize; profile: torch.profiler over 20 steps; "
+                  "mc seconds: host clock around infer_trainset() (pickle included)"}})
+    return {"train": launches, "mc_sweep_fused": mc["fused"]["launches"]}
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: FAILED: torch.cuda.is_available() is false")
-    environment()
-    build_kernels()
-    k1_main = decode_phase()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[name] = time.perf_counter() - t0
+
+    timed("environment", environment)
+    timed("build", build_kernels)
+    k1_main = timed("span_decode", decode_phase)
     build_root = os.path.join(ROOT, "build")
     os.makedirs(build_root, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_root) as workdir:
-        serve_launches = serve_phase(workdir)
-        t0 = time.perf_counter()
-        config, store, dataset = sweep_dataset(workdir, np.random.default_rng(SEED + 3))
-        emit({"sweep_dataset": {"seconds": time.perf_counter() - t0,
+        serve_launches = timed("serve", serve_phase, workdir)
+        config, store, dataset = timed("sweep_dataset", sweep_dataset, workdir,
+                                       np.random.default_rng(SEED + 3))
+        emit({"sweep_dataset": {"seconds": seconds["sweep_dataset"],
                                 "max_wlen": dataset["max_wlen"],
                                 "n_train": dataset["n_train"], "n_test": dataset["n_test"]}})
-        k2_main = fused_forward_phase(dataset["max_wlen"])
-        sweep_launches = sweep_phase(workdir, config, store, dataset)
+        k2_main = timed("fused_forward", fused_forward_phase, dataset["max_wlen"])
+        sweep_launches, table = timed("sweep_charades", sweep_phase, workdir, config,
+                                      store, dataset)
+        train_launches = timed("train_charades", train_phase, workdir, config, store,
+                               dataset, table)
+    emit({"phase_seconds": seconds, "card": CARD[0]})
     emit({"kernels": [{
         "name": "span_decode", "route": "cuda",
         "source": "hual_tpu_torch/csrc/span_decode.cu",
         "replaces": "hual_tpu/ops/pallas/span_decode.py:33",
-        "launches": serve_launches + sweep_launches["span_decode"],
+        "launches": (serve_launches + sweep_launches["span_decode"]
+                     + train_launches["train"]["span_decode"]
+                     + train_launches["mc_sweep_fused"]["span_decode"]),
         "launches_by_path": {"serve": serve_launches,
-                             "sweep_fused": sweep_launches["span_decode"]},
+                             "sweep_fused": sweep_launches["span_decode"],
+                             "train": train_launches["train"]["span_decode"],
+                             "mc_sweep_fused":
+                                 train_launches["mc_sweep_fused"]["span_decode"]},
         "max_abs_err": k1_main["max_abs_err"],
         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
@@ -889,8 +1253,13 @@ def main() -> None:
         "name": "fused_forward", "route": "cuda",
         "source": "hual_tpu_torch/csrc/fused_forward.cu",
         "replaces": "hual_tpu/ops/pallas/fused_forward.py:438",
-        "launches": sweep_launches["fused_forward"],
-        "launches_by_path": {"sweep_fused": sweep_launches["fused_forward"]},
+        "launches": (sweep_launches["fused_forward"]
+                     + train_launches["train"]["fused_forward"]
+                     + train_launches["mc_sweep_fused"]["fused_forward"]),
+        "launches_by_path": {"sweep_fused": sweep_launches["fused_forward"],
+                             "train": train_launches["train"]["fused_forward"],
+                             "mc_sweep_fused":
+                                 train_launches["mc_sweep_fused"]["fused_forward"]},
         "max_abs_err": k2_main["max_abs_err"],
         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],

@@ -17,8 +17,14 @@ in either package.  What the backend switches mean in this port:
   read: K2 takes one sample per thread block and any B.
 * ``model.matmul_precision``: every value runs full fp32 on the card, with
   TF32 off for cuBLAS and cuDNN alike (:func:`apply_matmul_precision`).
-* ``model.compute_dtype``: only ``"float32"``; bf16 activations arrive with
-  the training slice.
+* ``model.compute_dtype``: only ``"float32"``; bf16 activations come with
+  a later slice.
+* ``train.rng_impl`` and ``train.infer_rng_impl`` (the TPU's random-bit
+  generators) are accepted and not read: the port's train and MC streams
+  are ``torch.Generator``s seeded per step and per batch
+  (``runtime/steps.make_generator``), Philox on the card whatever these
+  name.  They never give the JAX package's bits, so parity of dropout and
+  gumbel passes is distributional.
 """
 
 from __future__ import annotations
@@ -145,8 +151,8 @@ class ModelConfig:
         if self.compute_dtype != "float32":
             raise ValueError(
                 f"model.compute_dtype {self.compute_dtype!r} is not ported "
-                "yet: bf16 activations come with the training slice of the "
-                "port (ROADMAP.md queue 1, slice 3); use float32")
+                "yet: bf16 activations come with a later slice of the port "
+                "(ROADMAP.md queue 1); use float32")
         self.feature_dtype = _canon_dtype(self.feature_dtype,
                                           "model.feature_dtype",
                                           storage=True)
@@ -227,5 +233,9 @@ class Config:
         return self.train.infer_batch_size or max(96, self.train.batch_size)
 
     def model_dir(self) -> str:
+        """Checkpoint directory of this round: ``<ckpt_dir>/<task>_<suffix>``.
+        The reference formats ``ckpt/{task}_`` without the suffix, so each
+        round overwrote the last; the suffix is kept so rounds resume, and
+        the reference layout stays for an empty suffix."""
         name = f"{self.task}_{self.suffix}" if self.suffix else f"{self.task}_"
         return os.path.join(self.paths.ckpt_dir, name)

@@ -1,19 +1,22 @@
-"""Neural building blocks, deterministic forward (counterpart of
-``hual_tpu/models/layers.py``).
+"""Neural building blocks (counterpart of ``hual_tpu/models/layers.py``).
 
 Layouts are PyTorch's: a dense kernel is ``(out, in)`` as in ``F.linear``,
 the depthwise filter ``(D, 1, k)`` as in a grouped ``F.conv1d``.  Each module
 draws its weights in the JAX package's shape with TF's fan rule and moves
 the axes (``reset_parameters``); ``weights.py`` maps them to the JAX
 package's leaves.  Submodules carry the JAX scope names, so a module's path
-here is its path in a bundle's ``params.npz``.  Dropout, gumbel noise and
-the losses other than the matching loss come with the training slice.
+here is its path in a bundle's ``params.npz``.
+
+A pass is stochastic iff it is given a ``torch.Generator``: dropout and the
+matching head's gumbel noise draw from it, and without one the pass is the
+deterministic one (JAX's ``deterministic=True``).  ``module.train()`` and
+``.eval()`` change nothing.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -21,6 +24,35 @@ from torch import nn
 
 from hual_tpu_torch.models.initializers import glorot_uniform_tf
 from hual_tpu_torch.ops.masking import attention_bias, mask_logits
+
+Rate = Union[float, torch.Tensor]
+
+
+def dropout(x: torch.Tensor, rate: Rate,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with the rate as a value (tf.nn.dropout semantics).
+
+    ``rate`` is a scalar or a per-sample ``(B,)`` vector.  The keep mask is
+    ``rand < 1 - rate`` with ``rand`` in [0, 1), so a rate-0 row keeps every
+    element and equals a deterministic pass bit for bit.  No generator, or a
+    scalar rate of 0, returns ``x`` without drawing.
+    """
+    if generator is None:
+        return x
+    if torch.is_tensor(rate):
+        r = rate.to(device=x.device, dtype=torch.float32)
+        if r.dim() == 1:                # per-sample rates over trailing axes
+            r = r.reshape(r.shape[0], *([1] * (x.dim() - 1)))
+        keep, inv = 1.0 - r, (1.0 / (1.0 - r)).to(x.dtype)
+    elif rate == 0.0:
+        return x
+    else:
+        # a Python float stays on the host: a device scalar made from it
+        # would be a blocking copy at every site
+        keep, inv = 1.0 - rate, 1.0 / (1.0 - rate)
+    u = torch.rand(x.shape, generator=generator, device=x.device,
+                   dtype=torch.float32)
+    return torch.where(u < keep, x * inv, 0.0)
 
 
 class LayerNorm(nn.Module):
@@ -120,11 +152,14 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def attend(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
-           bias: torch.Tensor) -> torch.Tensor:
-    """softmax(q k^T / sqrt(hd) + bias) v over (B, H, T, hd) heads."""
+           bias: torch.Tensor, drop_rate: Rate = 0.0,
+           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """softmax(q k^T / sqrt(hd) + bias) v over (B, H, T, hd) heads, with
+    dropout on the probabilities."""
     scale = 1.0 / math.sqrt(float(query.shape[-1]))
     scores = torch.matmul(query, key.transpose(-1, -2)) * scale
-    return torch.matmul(torch.softmax(scores + bias, dim=-1), value)
+    probs = dropout(torch.softmax(scores + bias, dim=-1), drop_rate, generator)
+    return torch.matmul(probs, value)
 
 
 class DualMultiheadAttention(nn.Module):
@@ -145,15 +180,16 @@ class DualMultiheadAttention(nn.Module):
         self.bilinear_1 = Bilinear(dim)
         self.bilinear_2 = Bilinear(dim)
 
-    def forward(self, from_tensor, to_tensor, from_mask, to_mask):
+    def forward(self, from_tensor, to_tensor, from_mask, to_mask,
+                drop_rate: Rate = 0.0, generator=None):
         h = self.num_heads
         query = _split_heads(self.query(from_tensor), h)
         s_out = attend(query, _split_heads(self.f_key(from_tensor), h),
                        _split_heads(self.f_value(from_tensor), h),
-                       attention_bias(from_mask, from_mask))
+                       attention_bias(from_mask, from_mask), drop_rate, generator)
         x_out = attend(query, _split_heads(self.t_key(to_tensor), h),
                        _split_heads(self.t_value(to_tensor), h),
-                       attention_bias(from_mask, to_mask))
+                       attention_bias(from_mask, to_mask), drop_rate, generator)
         s_value = self.s_dense(_merge_heads(s_out))
         x_value = self.x_dense(_merge_heads(x_out))
         outputs = self.s_gate(s_value) * x_value + self.x_gate(x_value) * s_value
@@ -180,7 +216,10 @@ class TrilinearAttention(nn.Module):
             self.linear_kernel4arg1.copy_(glorot_uniform_tf((d, 1), generator)[:, 0])
             self.linear_kernel4mul.copy_(glorot_uniform_tf((1, 1, d), generator)[0, 0])
 
-    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor, drop_rate: Rate = 0.0,
+                generator=None) -> torch.Tensor:
+        x1 = dropout(x1, drop_rate, generator)
+        x2 = dropout(x2, drop_rate, generator)
         sub0 = torch.matmul(x1, self.linear_kernel4arg0)[:, :, None]   # (B,L1,1)
         sub1 = torch.matmul(x2, self.linear_kernel4arg1)[:, None, :]   # (B,1,L2)
         sub2 = torch.matmul(x1 * self.linear_kernel4mul, x2.transpose(1, 2))
@@ -196,8 +235,10 @@ class CQAttention(nn.Module):
         self.efficient_trilinear = TrilinearAttention(dim)
         self.dense = Conv1D(4 * dim, dim)
 
-    def forward(self, inputs1, inputs2, mask1, mask2):
-        score = self.efficient_trilinear(inputs1, inputs2)            # (B,L1,L2)
+    def forward(self, inputs1, inputs2, mask1, mask2, drop_rate: Rate = 0.0,
+                generator=None):
+        score = self.efficient_trilinear(inputs1, inputs2, drop_rate,
+                                         generator)                   # (B,L1,L2)
         score_ = torch.softmax(mask_logits(score, mask2[:, None, :]), dim=-1)
         score_t = torch.softmax(mask_logits(score, mask1[:, :, None]), dim=1)
         c2q = torch.matmul(score_, inputs2)
@@ -240,9 +281,9 @@ class CQConcat(nn.Module):
 
 
 class MatchingHead(nn.Module):
-    """Per-frame 4-class logits + masked CE.  Deterministic pass only: with
-    gumbel on it keeps the 1/tau sharpening and draws no noise, as the JAX
-    package's deterministic passes do."""
+    """Per-frame 4-class logits + masked CE.  With gumbel on, a stochastic
+    pass adds gumbel noise before the 1/tau sharpening; a deterministic pass
+    keeps the sharpening only, as the JAX package's do."""
 
     def __init__(self, dim: int, label_size: int = 4, tau: float = 0.3,
                  gumbel: bool = False):
@@ -250,13 +291,64 @@ class MatchingHead(nn.Module):
         self.label_size, self.tau, self.gumbel = label_size, tau, gumbel
         self.dense = Conv1D(dim, label_size, True)
 
-    def forward(self, inputs, labels, mask):
+    def forward(self, inputs, labels, mask, generator=None):
         logits = self.dense(inputs).float()
         if self.gumbel:
+            if generator is not None:
+                u = torch.rand(logits.shape, generator=generator,
+                               device=logits.device, dtype=logits.dtype)
+                logits = logits - torch.log(-torch.log(u + 1e-20) + 1e-20)
             logits = logits / self.tau
         log_probs = torch.log_softmax(logits, dim=-1)
         probs = torch.softmax(logits, dim=-1)
-        per_pos = -log_probs.gather(-1, labels.long()[..., None])[..., 0]
+        # a one-hot product, as the JAX package takes it; built by a compare,
+        # so neither it nor its backward scatters
+        classes = torch.arange(self.label_size, device=labels.device)
+        onehot = (labels.long()[..., None] == classes).to(logits.dtype)
+        per_pos = -(onehot * log_probs).sum(dim=-1)
         m = mask.to(logits.dtype)
         loss = (per_pos * m).sum() / (m.sum() + 1e-12)
         return loss, probs
+
+
+def localizing_loss(start_logits, end_logits, y1, y2, mask) -> torch.Tensor:
+    """Masked softmax-CE of the start/end logits against soft labels."""
+    sl = mask_logits(start_logits, mask)
+    el = mask_logits(end_logits, mask)
+    start_losses = -(y1 * torch.log_softmax(sl, dim=-1)).sum(dim=-1)
+    end_losses = -(y2 * torch.log_softmax(el, dim=-1)).sum(dim=-1)
+    return (start_losses + end_losses).mean()
+
+
+def _l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
+    # tf.nn.l2_normalize: x * rsqrt(max(sum(x^2), eps))
+    sq = x.square().sum(dim=dim, keepdim=True)
+    return x * torch.rsqrt(torch.clamp(sq, min=eps))
+
+
+def _kl_for_log_probs(log_p: torch.Tensor, log_q: torch.Tensor) -> torch.Tensor:
+    """The reference's kl_for_log_probs.  Callers pass probabilities as
+    ``log_q``: a reference quirk kept as it is."""
+    p = torch.exp(log_p)
+    return (p * log_p).sum(dim=-1) - (p * log_q).sum(dim=-1)
+
+
+def alignment_loss(tfeat, vfeat, tmask, vmask, inner_label) -> torch.Tensor:
+    """Video-level contrastive KL, with both reference quirks: the query
+    mean-pool sums over padded positions and divides by the mask count, and
+    ``_kl_for_log_probs`` gets probabilities where log-probabilities are
+    expected."""
+    tsum = tfeat.sum(dim=1)                                         # (B, D)
+    tcount = tmask.sum(dim=1, keepdim=True).to(tsum.dtype)
+    tfeat_n = _l2_normalize(tsum / tcount, dim=1)
+
+    vm = vmask.to(inner_label.dtype)
+    frame_w = inner_label / vm.sum(dim=1, keepdim=True)
+    vsum = (vfeat * frame_w[:, :, None]).sum(dim=1)
+    vfeat_n = _l2_normalize(vsum, dim=1)
+
+    video_sim = torch.softmax(vfeat_n @ vfeat_n.T, dim=-1)
+    query_sim = torch.softmax(tfeat_n @ vfeat_n.T, dim=-1)
+    kl = (_kl_for_log_probs(torch.log(query_sim), video_sim)
+          + _kl_for_log_probs(torch.log(video_sim), query_sim))
+    return kl.sum()

@@ -5,6 +5,10 @@ the JAX package shares: the feature encoder between the start and the end
 pass here, and (``seqpan.py``) the positional embedding and conv block
 between the video and query streams and each dual-attention block between
 both directions.
+
+Every ``forward`` takes ``drop_rate`` and ``generator`` and puts dropout
+where the JAX package's modules do; without a generator the pass is
+deterministic.
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ from torch import nn
 from hual_tpu_torch.models.initializers import glorot_uniform_tf
 from hual_tpu_torch.models.layers import (Conv1D, DepthwiseSeparableConv,
                                           DualMultiheadAttention, LayerNorm,
-                                          _merge_heads, _split_heads, attend)
+                                          Rate, _merge_heads, _split_heads,
+                                          attend, dropout)
 from hual_tpu_torch.ops.masking import attention_bias
 
 
@@ -36,12 +41,13 @@ class WordEmbedding(nn.Module):
         with torch.no_grad():
             self.unk.copy_(glorot_uniform_tf((1, self.word_dim), generator))
 
-    def forward(self, word_ids: torch.Tensor,
-                word_vectors: torch.Tensor) -> torch.Tensor:
+    def forward(self, word_ids: torch.Tensor, word_vectors: torch.Tensor,
+                drop_rate: Rate = 0.0, generator=None) -> torch.Tensor:
         ids = word_ids.long()
         emb = word_vectors[(ids - 2).clamp(min=0)]
         emb = torch.where((ids == 1)[..., None], self.unk[0], emb)
-        return torch.where((ids == 0)[..., None], torch.zeros_like(emb), emb)
+        emb = torch.where((ids == 0)[..., None], torch.zeros_like(emb), emb)
+        return dropout(emb, drop_rate, generator)
 
 
 class CharEmbedding(nn.Module):
@@ -73,10 +79,12 @@ class CharEmbedding(nn.Module):
                 getattr(self, f"filter_{i}").copy_(w[0].permute(2, 1, 0))
                 getattr(self, f"bias_{i}").zero_()
 
-    def forward(self, char_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, char_ids: torch.Tensor, drop_rate: Rate = 0.0,
+                generator=None) -> torch.Tensor:
         b, w, c = char_ids.shape
         full = F.pad(self.char_table, (0, 0, 1, 0))          # zero PAD row
-        emb = full[char_ids.long()].reshape(b * w, c, self.dim).transpose(1, 2)
+        emb = dropout(full[char_ids.long()], drop_rate, generator)
+        emb = emb.reshape(b * w, c, self.dim).transpose(1, 2)
         outs = []
         for i in range(len(self.kernels)):
             conv = F.conv1d(emb, getattr(self, f"filter_{i}"),
@@ -109,7 +117,8 @@ class PositionalEmbedding(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    """num_layers x {LN -> depthwise-separable conv(k=7) + residual}."""
+    """num_layers x {LN -> depthwise-separable conv(k=7) -> dropout +
+    residual}."""
 
     def __init__(self, dim: int, kernel_size: int = 7, num_layers: int = 4):
         super().__init__()
@@ -119,10 +128,12 @@ class ConvBlock(nn.Module):
             self.add_module(f"depthwise_conv_layers_{i}",
                             DepthwiseSeparableConv(dim, kernel_size))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drop_rate: Rate = 0.0,
+                generator=None) -> torch.Tensor:
         for i in range(self.num_layers):
             y = getattr(self, f"layer_norm_{i}")(x)
-            x = getattr(self, f"depthwise_conv_layers_{i}")(y) + x
+            y = getattr(self, f"depthwise_conv_layers_{i}")(y)
+            x = dropout(y, drop_rate, generator) + x
         return x
 
 
@@ -138,12 +149,14 @@ class DualAttnBlock(nn.Module):
         self.layer_norm_2 = LayerNorm(dim)
         self.dense_2 = Conv1D(dim, dim, True)
 
-    def forward(self, from_tensor, to_tensor, from_mask, to_mask):
+    def forward(self, from_tensor, to_tensor, from_mask, to_mask,
+                drop_rate: Rate = 0.0, generator=None):
         out = self.dual_multihead_attention(
             self.layer_norm_1(from_tensor), self.layer_norm_t(to_tensor),
-            from_mask, to_mask)
-        residual = self.dense_1(out) + from_tensor
-        return self.dense_2(self.layer_norm_2(residual)) + residual
+            from_mask, to_mask, drop_rate, generator)
+        residual = dropout(self.dense_1(out), drop_rate, generator) + from_tensor
+        out = dropout(self.layer_norm_2(residual), drop_rate, generator)
+        return dropout(self.dense_2(out), drop_rate, generator) + residual
 
 
 class TopSelfAttention(nn.Module):
@@ -156,16 +169,19 @@ class TopSelfAttention(nn.Module):
         self.key = Conv1D(dim, dim, True)
         self.value = Conv1D(dim, dim, True)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                drop_rate: Rate = 0.0, generator=None) -> torch.Tensor:
         h = self.num_heads
         out = attend(_split_heads(self.query(x), h),
                      _split_heads(self.key(x), h),
-                     _split_heads(self.value(x), h), attention_bias(mask, mask))
+                     _split_heads(self.value(x), h), attention_bias(mask, mask),
+                     drop_rate, generator)
         return _merge_heads(out)
 
 
 class FeatureEncoder(nn.Module):
-    """pos-emb -> conv block -> LN -> self-attention -> FFN, with residuals."""
+    """pos-emb -> conv block -> LN -> self-attention -> FFN, with residuals;
+    the self-attention's probabilities take ``attn_drop``."""
 
     def __init__(self, dim: int, num_heads: int, max_pos_len: int):
         super().__init__()
@@ -176,11 +192,14 @@ class FeatureEncoder(nn.Module):
         self.layer_norm_2 = LayerNorm(dim)
         self.dense = Conv1D(dim, dim, True)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        feats = self.conv_block(self.pos_emb(x))
-        out = self.top_self_attention(self.layer_norm_1(feats), mask)
-        residual = out + feats
-        return self.dense(self.layer_norm_2(residual)) + residual
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, drop_rate: Rate = 0.0,
+                attn_drop: Rate = 0.0, generator=None) -> torch.Tensor:
+        feats = self.conv_block(self.pos_emb(x), drop_rate, generator)
+        out = dropout(self.layer_norm_1(feats), drop_rate, generator)
+        out = self.top_self_attention(out, mask, attn_drop, generator)
+        residual = dropout(out, drop_rate, generator) + feats
+        out = dropout(self.layer_norm_2(residual), drop_rate, generator)
+        return dropout(self.dense(out), drop_rate, generator) + residual
 
 
 class ConditionedPredictor(nn.Module):
@@ -197,10 +216,13 @@ class ConditionedPredictor(nn.Module):
         self.start_dense = Conv1D(dim, 1, True)
         self.end_dense = Conv1D(dim, 1, True)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, drop_rate: Rate = 0.0,
+                attn_drop: Rate = 0.0, generator=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-        start_feats = self.feature_encoder(x, mask)
-        end_feats = self.feature_encoder(start_feats, mask)
+        start_feats = self.feature_encoder(x, mask, drop_rate, attn_drop,
+                                           generator)
+        end_feats = self.feature_encoder(start_feats, mask, drop_rate,
+                                         attn_drop, generator)
         start_feats = self.start_hidden(
             torch.cat([self.start_layer_norm(start_feats), x], dim=-1))
         end_feats = self.end_hidden(

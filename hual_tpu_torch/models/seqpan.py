@@ -1,15 +1,18 @@
-"""SeqPAN, deterministic forward (counterpart of ``hual_tpu/models/seqpan.py``).
+"""SeqPAN (counterpart of ``hual_tpu/models/seqpan.py``).
 
 Text/video encoders -> shared pos-emb + conv block -> N x dual attention
 (one block per layer, both directions) -> CQ fusion -> matching head (+ the
 label-embedding orthogonality penalty) -> conditioned span predictor ->
 span decode.  ``span_decode="pallas"`` decodes with the Hopper kernel
-(``ops/kernels/span_decode.py``), ``"xla"`` with the plain PyTorch decode.
+(``ops/kernels/span_decode.py``), ``"xla"`` with the plain PyTorch decode;
+either decodes the detached logits, so the train step launches the kernel
+too.  The forward returns logits and scores; :func:`seqpan_loss` adds the
+losses, so one forward serves train, eval and MC-dropout passes.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 from torch import nn
@@ -17,11 +20,13 @@ from torch import nn
 from hual_tpu_torch.config import Config
 from hual_tpu_torch.models.initializers import orthogonal
 from hual_tpu_torch.models.layers import (CQAttention, CQConcat, Conv1D,
-                                          LayerNorm, MatchingHead)
+                                          LayerNorm, MatchingHead, Rate,
+                                          alignment_loss, dropout,
+                                          localizing_loss)
 from hual_tpu_torch.models.modules import (CharEmbedding, ConditionedPredictor,
                                            ConvBlock, DualAttnBlock,
                                            PositionalEmbedding, WordEmbedding)
-from hual_tpu_torch.ops import decode
+from hual_tpu_torch.ops.decode import span_decode as span_decode_plain
 from hual_tpu_torch.ops.kernels import span_decode as span_decode_kernel
 from hual_tpu_torch.ops.masking import sequence_mask
 
@@ -83,47 +88,71 @@ class SeqPAN(nn.Module):
 
     def forward(self, batch: dict[str, torch.Tensor],
                 word_vectors: torch.Tensor,
-                match_labels: Optional[torch.Tensor] = None
-                ) -> dict[str, torch.Tensor]:
+                match_labels: Optional[torch.Tensor] = None, *,
+                drop_rate: Rate = 0.0,
+                generator: Optional[torch.Generator] = None,
+                decode: bool = True) -> dict[str, torch.Tensor]:
+        """One pass; stochastic (dropout at ``drop_rate``, a scalar or a
+        per-sample vector, and gumbel noise) iff ``generator`` is given.
+        ``decode=False`` skips the span decode (the MC passes keep only
+        their logits): the outputs then have no indices."""
         v_mask = sequence_mask(batch["video_seq_len"], self.max_vlen)
         q_mask = (batch["word_ids"] != 0).to(torch.int32)
+        drop = dict(drop_rate=drop_rate, generator=generator)
 
-        qfeats = torch.cat([self.word_embs(batch["word_ids"], word_vectors),
-                            self.char_embs(batch["char_ids"])], dim=-1)
+        qfeats = torch.cat([self.word_embs(batch["word_ids"], word_vectors, **drop),
+                            self.char_embs(batch["char_ids"], **drop)], dim=-1)
         qfeats = self.q_layer_norm(self.query_conv1d(qfeats))
-        vfeats = self.v_layer_norm(self.video_conv1d(batch["video_features"]))
+        vfeats = dropout(batch["video_features"], drop_rate, generator)
+        vfeats = self.v_layer_norm(self.video_conv1d(vfeats))
 
-        vfeats = self.conv_block(self.pos_emb(vfeats))
-        qfeats = self.conv_block(self.pos_emb(qfeats))
+        vfeats = self.conv_block(self.pos_emb(vfeats), **drop)
+        qfeats = self.conv_block(self.pos_emb(qfeats), **drop)
 
         for i in range(self.attn_layer):
             blk = getattr(self, f"d_attn_{i}")
-            vfeats, qfeats = (blk(vfeats, qfeats, v_mask, q_mask),
-                              blk(qfeats, vfeats, q_mask, v_mask))
+            vfeats, qfeats = (blk(vfeats, qfeats, v_mask, q_mask, **drop),
+                              blk(qfeats, vfeats, q_mask, v_mask, **drop))
 
-        q2v_feats, _ = self.q2v_attn(vfeats, qfeats, v_mask, q_mask)
-        v2q_feats, _ = self.v2q_attn(qfeats, vfeats, q_mask, v_mask)
+        q2v_feats, _ = self.q2v_attn(vfeats, qfeats, v_mask, q_mask, **drop)
+        v2q_feats, _ = self.v2q_attn(qfeats, vfeats, q_mask, v_mask, **drop)
         fuse_feats = self.cq_cat(q2v_feats, v2q_feats, q_mask)
 
         labels = match_labels if match_labels is not None else torch.zeros(
             fuse_feats.shape[:2], dtype=torch.int32, device=fuse_feats.device)
         match_loss, match_scores = self.matching_head(fuse_feats, labels,
-                                                      v_mask)
+                                                      v_mask, generator)
         eye = torch.eye(4, device=self.label_emb.device)
         ortho = self.label_emb @ self.label_emb.T * (1.0 - eye)
         match_loss = match_loss + ortho.square().sum().sqrt()
 
         soft_label_embs = match_scores @ self.label_emb
         outputs = (fuse_feats + soft_label_embs) * v_mask[:, :, None]
-        start_logits, end_logits = self.predictor(outputs, v_mask)
+        start_logits, end_logits = self.predictor(outputs, v_mask, drop_rate,
+                                                  drop_rate, generator)
 
-        decoder = (span_decode_kernel.span_decode
-                   if self.span_decode == "pallas" else decode.span_decode)
-        start_index, end_index = decoder(start_logits, end_logits, v_mask)
-        return {
-            "v_mask": v_mask, "q_mask": q_mask,
-            "q2v_feats": q2v_feats, "v2q_feats": v2q_feats,
-            "match_loss": match_loss, "match_scores": match_scores,
-            "start_logits": start_logits, "end_logits": end_logits,
-            "start_index": start_index, "end_index": end_index,
-        }
+        out = {"v_mask": v_mask, "q_mask": q_mask,
+               "q2v_feats": q2v_feats, "v2q_feats": v2q_feats,
+               "match_loss": match_loss, "match_scores": match_scores,
+               "start_logits": start_logits, "end_logits": end_logits}
+        if decode:
+            decoder = (span_decode_kernel.span_decode if self.span_decode == "pallas"
+                       else span_decode_plain)
+            # integer outputs: no gradient, so the kernel decodes detached logits
+            out["start_index"], out["end_index"] = decoder(
+                start_logits.detach(), end_logits.detach(), v_mask)
+        return out
+
+
+def seqpan_loss(outputs: dict[str, torch.Tensor], batch: dict[str, torch.Tensor],
+                match_lambda: float = 1.0
+                ) -> tuple[torch.Tensor, dict[str, Any]]:
+    """Total loss = loc + lambda*match + 1.0*align."""
+    loc = localizing_loss(outputs["start_logits"], outputs["end_logits"],
+                          batch["y1"], batch["y2"], outputs["v_mask"])
+    align = alignment_loss(outputs["v2q_feats"], outputs["q2v_feats"],
+                           outputs["q_mask"], outputs["v_mask"],
+                           batch["inner_labels"])
+    total = loc + match_lambda * outputs["match_loss"] + align * 1.0
+    return total, {"loc_loss": loc, "match_loss": outputs["match_loss"],
+                   "align_loss": align, "loss": total}

@@ -1,31 +1,49 @@
-"""Eval and AL-inference steps and sweeps (counterpart of
+"""Train, eval and AL-inference steps and sweeps (counterpart of
 ``hual_tpu/runtime/steps.py``).
 
 The split lives on the device (``Trainer``): the feature table plus the
-per-sample columns.  A sweep takes the (n_batches, B) index matrix, gathers
-each batch on the device and runs one deterministic forward per batch; the
-JAX package's ``lax.scan`` is a Python loop here.  Outputs stay on the
-device, stacked (n_batches, B, ...), until the caller fetches them.
+per-sample columns.  A step gathers its batch on the device from an index
+vector; the JAX package's ``lax.scan`` over batches is a Python loop here,
+and outputs stay on the device until the caller fetches them.
 
-Two backends, chosen by ``train.sweep_backend``:
+* Train step: labels built on the device, SeqPAN at the train drop rate,
+  loc + match + align losses, BERT-AdamW (``ops/optim.py``), the span decode
+  of the training forward (K1 under ``span_decode: pallas``) and the IoU.
+  ``train_epoch`` runs one epoch's shuffled order and returns its losses
+  and IoUs still on the device.
+* Sweeps, two backends chosen by ``train.sweep_backend``: ``flax``, the
+  port's eager ``SeqPAN`` (its span decode follows ``model.span_decode``);
+  ``fused``, ``encoder_inputs`` + K2 (``ops/kernels/fused_forward.py``) +
+  K1 (``ops/kernels/span_decode.py``) with the weights packed at the start
+  of each sweep.
 
-* ``flax``: the port's eager ``SeqPAN`` (its span decode follows
-  ``model.span_decode``);
-* ``fused``: ``encoder_inputs`` + K2 (``ops/kernels/fused_forward.py``) +
-  K1 (``ops/kernels/span_decode.py``), with the weights packed once per
-  sweep.
+MC passes: the clean pass is deterministic; the two stochastic passes run
+the eager model at ``mc_droprate``, each with its own generator, and do not
+decode.  Reuse rule: at ``mc_droprate`` 0 with the gumbel head off nothing is
+stochastic, so both "stochastic" passes are the clean pass.
 
-MC reuse rule: at ``mc_droprate`` 0 with the gumbel head off nothing is
-stochastic at eval, so both "stochastic" passes are the clean pass.  Live
-stochastic passes (dropout, gumbel noise) come with slice 3 of the port;
-until then they raise.  The train step and epoch come with slice 3 too.
+Random streams: the generator of train step ``k`` is seeded from
+``(train.seed + 17, k)``, those of sweep batch ``i`` from ``(seed, i, 0)``
+and ``(seed, i, 1)`` (``make_generator``), so a run replays from its
+counters alone.  On the card they are Philox streams; they do not give the
+JAX package's bits, so dropout parity is distributional.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from hual_tpu_torch.data.labels_device import make_span_labels_device
+from hual_tpu_torch.models.seqpan import seqpan_loss
 from hual_tpu_torch.ops.fused_forward import pack_weights, seqpan_forward_fused
+
+
+def make_generator(device: torch.device, *words: int) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded by hashing ``words``
+    (``np.random.SeedSequence``): a pure function of its arguments."""
+    seed = int(np.random.SeedSequence(list(words)).generate_state(1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def device_ious(start_idx, end_idx, s_ind, e_ind, v_len, duration) -> torch.Tensor:
@@ -58,13 +76,14 @@ def dequantize_batch(batch: dict) -> dict:
     return batch
 
 
-def gather_batch(data: dict, sel: torch.Tensor) -> dict:
+def gather_batch(data: dict, sel: torch.Tensor, with_labels: bool = False) -> dict:
     """One batch gathered on the device from the device-resident split.
 
     ``data`` holds ``features`` (n_videos, T, vdim) in f32, bf16 or int8
     (then with ``feature_scales`` (n_videos, T)) and the per-sample
     columns; ``sel`` (B,) indexes the samples.  Only the B gathered rows
-    are dequantized; compute stays f32.
+    are dequantized; compute stays f32.  ``with_labels`` adds ``y1``,
+    ``y2``, ``match_labels`` and ``inner_labels``, built on the device.
     """
     def take(name):
         return data[name].index_select(0, sel)
@@ -77,6 +96,11 @@ def gather_batch(data: dict, sel: torch.Tensor) -> dict:
     batch.update(video_seq_len=take("v_len"), word_ids=take("word_ids"),
                  char_ids=take("char_ids"), s_ind=take("s_ind"),
                  e_ind=take("e_ind"), duration=take("duration"))
+    if with_labels:
+        y1, y2, match, inner = make_span_labels_device(
+            batch["s_ind"], batch["e_ind"], batch["video_seq_len"],
+            data["features"].shape[1])
+        batch.update(y1=y1, y2=y2, match_labels=match, inner_labels=inner)
     return batch
 
 
@@ -85,25 +109,75 @@ def _ious(out: dict, batch: dict) -> torch.Tensor:
                        batch["e_ind"], batch["video_seq_len"], batch["duration"])
 
 
-def check_mc_passes(model, mc_droprate: float) -> None:
-    """Raise unless the MC reuse rule holds (mc_droprate 0, gumbel off)."""
-    if mc_droprate != 0.0:
-        raise NotImplementedError(
-            f"train.mc_droprate={mc_droprate}: dropout MC passes come with "
-            "slice 3 of the port (ROADMAP.md queue 1); use 0.0")
-    if model.use_gumbel:
-        raise NotImplementedError(
-            "loss.no_gumbel: false: the live gumbel passes of the AL sweep "
-            "come with slice 3 of the port (ROADMAP.md queue 1)")
+def train_step(model, opt, batch: dict, word_vectors: torch.Tensor, lr: float,
+               generator: torch.Generator, *, drop_rate: float,
+               match_lambda: float = 1.0) -> dict:
+    """One update of ``model``'s parameters through ``opt`` (a
+    ``BertAdamW`` over them) on a labelled batch; returns the detached loss
+    components and the IoUs of the training forward's decoded spans."""
+    batch = dequantize_batch(batch)
+    out = model(batch, word_vectors, batch["match_labels"], drop_rate=drop_rate,
+                generator=generator)
+    total, aux = seqpan_loss(out, batch, match_lambda)
+    grads = torch.autograd.grad(total, opt.params, allow_unused=True,
+                                materialize_grads=True)
+    opt.step(grads, lr)
+    metrics = {k: v.detach() for k, v in aux.items()}
+    metrics["ious"] = _ious(out, batch)
+    return metrics
 
 
-def _infer_outputs(out: dict, batch: dict) -> dict:
-    # MC reuse rule: both "stochastic" passes are the clean pass
-    s, e = out["start_logits"], out["end_logits"]
-    return {"match_scores": out["match_scores"], "start_logits": s,
-            "end_logits": e, "start_index": out["start_index"],
-            "end_index": out["end_index"], "start_logits1": s,
-            "end_logits1": e, "start_logits2": s, "end_logits2": e,
+def train_epoch(model, opt, data: dict, order: torch.Tensor, batch_size: int,
+                word_vectors: torch.Tensor, lr: float, seed: int, step0: int, *,
+                drop_rate: float, match_lambda: float = 1.0
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One epoch over ``order`` (the epoch's shuffled sample indices, on the
+    device), cut into batches of ``batch_size`` (the last may be ragged).
+    Step ``k`` draws from ``make_generator(device, seed, k)`` with ``k``
+    counted from ``step0``.  Returns (losses (n_steps,), ious (n,)), on the
+    device."""
+    losses, ious = [], []
+    for i, lo in enumerate(range(0, order.numel(), batch_size)):
+        batch = gather_batch(data, order[lo:lo + batch_size], with_labels=True)
+        metrics = train_step(model, opt, batch, word_vectors, lr,
+                             make_generator(order.device, seed, step0 + i),
+                             drop_rate=drop_rate, match_lambda=match_lambda)
+        losses.append(metrics["loss"])
+        ious.append(metrics["ious"])
+    return torch.stack(losses), torch.cat(ious)
+
+
+def _stochastic(model, mc_droprate: float) -> bool:
+    return mc_droprate != 0.0 or model.use_gumbel
+
+
+def _mc_passes(model, batch: dict, word_vectors: torch.Tensor,
+               mc_droprate: float, generators, clean: dict) -> list[dict]:
+    """The two MC passes: the clean pass twice by the reuse rule, else two
+    stochastic eager passes that do not decode."""
+    if not _stochastic(model, mc_droprate):
+        return [clean, clean]
+    if generators is None or len(generators) != 2:
+        raise ValueError("the stochastic MC passes need two generators")
+    return [model(batch, word_vectors, drop_rate=mc_droprate, generator=g,
+                  decode=False) for g in generators]
+
+
+def _mc_generators(model, mc_droprate: float, device: torch.device, seed: int,
+                   i: int):
+    if not _stochastic(model, mc_droprate):
+        return None
+    return [make_generator(device, seed, i, k) for k in range(2)]
+
+
+def _infer_outputs(out: dict, mc: list[dict], batch: dict) -> dict:
+    return {"match_scores": out["match_scores"],
+            "start_logits": out["start_logits"], "end_logits": out["end_logits"],
+            "start_index": out["start_index"], "end_index": out["end_index"],
+            "start_logits1": mc[0]["start_logits"],
+            "end_logits1": mc[0]["end_logits"],
+            "start_logits2": mc[1]["start_logits"],
+            "end_logits2": mc[1]["end_logits"],
             "ious": _ious(out, batch)}
 
 
@@ -121,12 +195,13 @@ def eval_step(model, batch: dict, word_vectors: torch.Tensor) -> dict:
 
 @torch.inference_mode()
 def infer_step(model, batch: dict, word_vectors: torch.Tensor,
-               mc_droprate: float = 0.0) -> dict:
-    """Clean forward plus the two MC passes (the clean pass, by the reuse
-    rule)."""
-    check_mc_passes(model, mc_droprate)
+               mc_droprate: float = 0.0, generators=None) -> dict:
+    """Clean forward plus the two MC passes; ``generators`` (two) are
+    needed unless the reuse rule holds."""
     batch = dequantize_batch(batch)
-    return _infer_outputs(model(batch, word_vectors), batch)
+    clean = model(batch, word_vectors)
+    return _infer_outputs(clean, _mc_passes(model, batch, word_vectors,
+                                            mc_droprate, generators, clean), batch)
 
 
 @torch.inference_mode()
@@ -139,11 +214,14 @@ def eval_sweep(model, data: dict, sels: torch.Tensor,
 
 @torch.inference_mode()
 def infer_sweep(model, data: dict, sels: torch.Tensor,
-                word_vectors: torch.Tensor, mc_droprate: float = 0.0) -> dict:
-    """sels (n_batches, B) -> dict of (n_batches, B, ...), eager model."""
-    check_mc_passes(model, mc_droprate)
-    return _stack([infer_step(model, gather_batch(data, sel), word_vectors)
-                   for sel in sels])
+                word_vectors: torch.Tensor, mc_droprate: float = 0.0,
+                seed: int = 0) -> dict:
+    """sels (n_batches, B) -> dict of (n_batches, B, ...), eager model;
+    batch ``i``'s MC passes draw from ``(seed, i, 0)`` and ``(seed, i, 1)``."""
+    return _stack([infer_step(model, gather_batch(data, sel), word_vectors,
+                              mc_droprate, _mc_generators(model, mc_droprate,
+                                                          sels.device, seed, i))
+                   for i, sel in enumerate(sels)])
 
 
 @torch.inference_mode()
@@ -161,15 +239,18 @@ def fused_eval_sweep(model, data: dict, sels: torch.Tensor,
 
 @torch.inference_mode()
 def fused_infer_sweep(model, data: dict, sels: torch.Tensor,
-                      word_vectors: torch.Tensor,
-                      mc_droprate: float = 0.0) -> dict:
-    """AL sweep with the clean pass through K2 and K1; same stacked schema
-    as :func:`infer_sweep`."""
-    check_mc_passes(model, mc_droprate)
+                      word_vectors: torch.Tensor, mc_droprate: float = 0.0,
+                      seed: int = 0) -> dict:
+    """AL sweep with the clean pass through K2 and K1 and the stochastic
+    passes on the eager model; same stacked schema and streams as
+    :func:`infer_sweep`."""
     packed = pack_weights(model)
     outs = []
-    for sel in sels:
+    for i, sel in enumerate(sels):
         batch = gather_batch(data, sel)
-        outs.append(_infer_outputs(
-            seqpan_forward_fused(model, packed, batch, word_vectors), batch))
+        clean = seqpan_forward_fused(model, packed, batch, word_vectors)
+        mc = _mc_passes(model, batch, word_vectors, mc_droprate,
+                        _mc_generators(model, mc_droprate, sels.device, seed, i),
+                        clean)
+        outs.append(_infer_outputs(clean, mc, batch))
     return _stack(outs)

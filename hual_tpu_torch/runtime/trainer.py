@@ -1,23 +1,37 @@
-"""Trainer: the eval and AL-inference sweeps on one device (counterpart of
-``hual_tpu/runtime/trainer.py``, the sweep half).
+"""Trainer: training, eval and AL-inference on one device (counterpart of
+``hual_tpu/runtime/trainer.py``).
 
 ``Trainer`` puts the whole dataset on the card (the feature table in f32,
-bf16, or int8 with its per-clip scales, and the per-sample columns); a sweep
-sends only the index matrix, cached per split.  ``test()`` gives R@1 and
-mIoU of a split; ``infer_trainset()`` writes the round pickle with the
+bf16, or int8 with its per-clip scales, and the per-sample columns); a step
+or a sweep sends only indices.  ``train()`` runs the reference schedule:
+linear LR decay per epoch, one train step per batch, a test sweep each
+epoch, the best R@1@0.7 params kept as a checkpoint, and a full-state save
+every ``train.save_state_every`` epochs for resume.  ``test()`` gives R@1
+and mIoU of a split; ``infer_trainset()`` writes the round pickle with the
 reference schema, which ``hual_tpu.active.engine.update_labels`` reads.
 ``train.sweep_backend`` picks the eager model (``flax``) or K2 + K1
-(``fused``), see ``runtime/steps.py``.
+(``fused``) for the sweeps, see ``runtime/steps.py``.
+
+Checkpoints are the port's own: the best params as the JAX package's flat
+``params.npz`` dict (``weights.to_jax_params``) in ``<model_dir>/best.npz``,
+which either package can load; the full state (params, optimizer moments,
+step, best R@1@0.7, epochs done) through ``torch.save``.  A resumed run
+replays the uninterrupted one: the shuffle is a function of the epoch and
+each step's generator of the global step.  On the card that replay is bit
+for bit only under ``torch.use_deterministic_algorithms(True)`` with
+``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set before cuBLAS starts.
 
 It runs on the card (``device="cuda"``) unless the caller passes
-``device="cpu"``; without a card it raises.  Training, state save/load and
-checkpoint restore come with slice 3 of the port (ROADMAP.md queue 1), as do
-the options that raise NotImplementedError here.
+``device="cpu"``; without a card it raises.  The options that raise
+NotImplementedError here are not ported yet (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional
+import os
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -25,23 +39,35 @@ import torch
 from hual_tpu_torch.config import (Config, apply_matmul_precision,
                                    resolve_device)
 from hual_tpu_torch.data.features import FeatureStore, quantize_features
-from hual_tpu_torch.data.loader import EvalLoader, PackedDataset
+from hual_tpu_torch.data.loader import EvalLoader, PackedDataset, TrainLoader
 from hual_tpu_torch.models import get_model_class
+from hual_tpu_torch.ops.optim import BertAdamW, count_params, make_optimizer
 from hual_tpu_torch.runtime import steps
 from hual_tpu_torch.runtime.logger import get_logger
-from hual_tpu_torch.runtime.observability import trace
+from hual_tpu_torch.runtime.observability import MetricsWriter, StepTimer, trace
 from hual_tpu_torch.utils.io import save_pickle
 from hual_tpu_torch.utils.metrics import rank1_metrics
-from hual_tpu_torch.weights import load_jax_params
+from hual_tpu_torch.weights import load_jax_params, to_jax_params
 
 _FEATURE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                    "int8": torch.int8}
 _DeviceTable = tuple[torch.Tensor, Optional[torch.Tensor]]
 
 
-def _slice3(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: it comes with "
-                               "slice 3 of the port (ROADMAP.md queue 1)")
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet: it comes with a "
+                               "later slice of the port (ROADMAP.md queue 1)")
+
+
+@dataclass
+class TrainState:
+    """What training carries besides the params, which live in the model."""
+
+    opt: BertAdamW
+    step: int = 0
+    best_r1i7: float = -1.0
+    # epochs completed so far (== the next epoch train() runs)
+    epoch: int = 0
 
 
 class Trainer:
@@ -52,12 +78,12 @@ class Trainer:
         self.device = resolve_device(device)
         tcfg = config.train
         if tcfg.fold_mc:
-            raise _slice3("train.fold_mc (folded MC-dropout passes)")
+            raise _unported("train.fold_mc (folded MC-dropout passes)")
         if tcfg.mc_dtype != config.model.compute_dtype:
-            raise _slice3(f"train.mc_dtype={tcfg.mc_dtype!r} (a bf16 clone "
+            raise _unported(f"train.mc_dtype={tcfg.mc_dtype!r} (a bf16 clone "
                           "for the MC passes)")
         if tcfg.fused_mxu_bf16:
-            raise _slice3("train.fused_mxu_bf16 (bf16 products in K2)")
+            raise _unported("train.fused_mxu_bf16 (bf16 products in K2)")
         if self.device.type == "cuda":
             apply_matmul_precision(config.model.matmul_precision)
         self.config = config
@@ -88,7 +114,7 @@ class Trainer:
         table_gb = packed.size * self._feat_dtype.itemsize / 1e9
         if tcfg.host_streaming or (tcfg.host_streaming is None
                                    and table_gb > tcfg.hbm_budget_gb):
-            raise _slice3(f"host streaming (a {table_gb:.2f} GB feature table, "
+            raise _unported(f"host streaming (a {table_gb:.2f} GB feature table, "
                           f"budget train.hbm_budget_gb={tcfg.hbm_budget_gb})")
         if device_features is None:
             device_features = self._put_feature_table(packed)
@@ -112,23 +138,39 @@ class Trainer:
         # eval/infer index matrices depend only on the split and the batch
         # size: built and put on the device once
         self._sweep_cache: dict[str, tuple[Any, list, torch.Tensor, int]] = {}
-        self.ready = False
+        self.state: Optional[TrainState] = None
+        self.metrics: Optional[MetricsWriter] = None
+        self.last_epoch_wall: dict[str, float] = {}
+
+    def close(self) -> None:
+        """Release the metrics JSONL handle (a multi-round loop builds one
+        trainer per round)."""
+        if self.metrics is not None:
+            self.metrics.close()
+            self.metrics = None
 
     # ------------------------------------------------------------------
-    def init_state(self, seed: Optional[int] = None) -> None:
+    def init_state(self, seed: Optional[int] = None) -> TrainState:
         """Draw every weight from a ``torch.Generator`` seeded with
-        ``train.seed`` (or ``seed``)."""
+        ``train.seed`` (or ``seed``); zero optimizer moments."""
         seed = self.config.train.seed if seed is None else seed
         self.model.reset_parameters(torch.Generator().manual_seed(seed))
-        self.ready = True
-        n = sum(p.numel() for p in self.model.parameters())
-        self.logger.info(f"initialized {self.config.model.name}: {n} params")
+        self.logger.info(f"initialized {self.config.model.name}: "
+                         f"{count_params(self.model)} params")
+        return self._fresh_state()
 
-    def load_params(self, flat: Mapping[str, np.ndarray]) -> None:
+    def load_params(self, flat: Mapping[str, np.ndarray]) -> TrainState:
         """Load the JAX package's flat params dict (a bundle's
-        ``params.npz``; keys like ``params/d_attn_0/...``)."""
+        ``params.npz``; keys like ``params/d_attn_0/...``); zero optimizer
+        moments."""
         load_jax_params(self.model, flat)
-        self.ready = True
+        return self._fresh_state()
+
+    def _fresh_state(self) -> TrainState:
+        tcfg = self.config.train
+        self.state = TrainState(opt=make_optimizer(self.model, tcfg.clip_norm,
+                                                   tcfg.weight_decay))
+        return self.state
 
     def export_device_features(self) -> _DeviceTable:
         """The device table, to reuse across rounds: (table, scales), with
@@ -166,7 +208,7 @@ class Trainer:
         return cached[1], cached[2]
 
     def _require_weights(self) -> None:
-        if not self.ready:
+        if self.state is None:
             raise RuntimeError("no weights: call init_state() or load_params()")
 
     # ------------------------------------------------------------------
@@ -186,19 +228,22 @@ class Trainer:
         kept = np.concatenate([ious[i, :n] for i, (_, n) in enumerate(pairs)])
         return rank1_metrics(kept)
 
-    def infer_trainset(self, save_path: Optional[str] = None) -> dict[str, float]:
-        """Full-train-set inference; writes the round pickle with the
-        reference schema (NumPy float32 arrays and Python ints)."""
+    def infer_trainset(self, save_path: Optional[str] = None,
+                       seed: Optional[int] = None) -> dict[str, float]:
+        """Full-train-set MC-dropout inference; writes the round pickle with
+        the reference schema (NumPy float32 arrays and Python ints).  The
+        stochastic passes draw from ``train.seed`` (or ``seed``)."""
         self._require_weights()
         cfg = self.config
-        steps.check_mc_passes(self.model, cfg.train.mc_droprate)
+        seed = cfg.train.seed if seed is None else seed
         if save_path is None:
             save_path = f"./results/{cfg.task}/{cfg.suffix}.pkl"
         batch_size = min(cfg.infer_batch_size, len(self.train_set))
         pairs, sels = self._sweep_sels("infer", self.train_set, batch_size)
         with trace("infer_sweep"):
             outs = self._infer_sweep(self.model, self._train_data, sels,
-                                     self.word_vectors, cfg.train.mc_droprate)
+                                     self.word_vectors, cfg.train.mc_droprate,
+                                     seed)
             host = {}
             for k, v in outs.items():
                 stacked = v.cpu().numpy()                    # (n_batches, B, ...)
@@ -227,14 +272,143 @@ class Trainer:
             .format(**metrics))
         return metrics
 
-    def train(self, *args, **kwargs):
-        raise _slice3("Trainer.train")
+    # ------------------------------------------------------------------
+    def train(self, epoch_callback: Optional[Callable[[int, dict], None]] = None
+              ) -> dict[str, Any]:
+        """Run the configured epochs from ``state.epoch``; returns the
+        best-epoch record.
 
+        ``epoch_callback(epoch, test_metrics)`` fires after each epoch's
+        checkpoint and state save; an exception from it stops the run where
+        a preemption would.
+        """
+        cfg = self.config
+        tcfg = cfg.train
+        if self.state is None:
+            self.init_state()
+        state = self.state
+        if self.metrics is None:
+            self.metrics = MetricsWriter(os.path.join(
+                "logs", cfg.task, f"metrics_{cfg.suffix or 'run'}.jsonl"))
+        loader = TrainLoader(self.train_set, tcfg.batch_size, seed=tcfg.seed)
+        # the persisted best seeds the threshold, so a resumed run cannot
+        # overwrite a better checkpoint
+        best = {"r1i7": state.best_r1i7, "train_line": "", "test_line": "",
+                "epoch": -1, "test_metrics": {}, "train_metrics": {},
+                "improved": False}
+        model_dir = os.path.abspath(cfg.model_dir())
+        os.makedirs(model_dir, exist_ok=True)
+        timer = StepTimer(warmup_steps=1)
+        if state.epoch:
+            self.logger.info(f"resuming at epoch {state.epoch} "
+                             f"(step {state.step})")
+        for epoch in range(state.epoch, tcfg.epochs):
+            # linear LR decay (reference main.py:61)
+            cur_lr = tcfg.lr * (1.0 - epoch / tcfg.epochs)
+            t0 = time.perf_counter()
+            timer.start()
+            with trace(f"train_epoch_{epoch}"):
+                order = torch.from_numpy(np.concatenate(
+                    list(loader.index_iter(epoch)))).to(self.device)
+                losses, ious = steps.train_epoch(
+                    self.model, state.opt, self._train_data, order,
+                    loader.batch_size, self.word_vectors, cur_lr,
+                    tcfg.seed + 17, state.step, drop_rate=tcfg.droprate,
+                    match_lambda=cfg.loss.match_lambda)
+                # the epoch's one fetch, and the only synchronisation
+                fetched = torch.cat([losses, ious]).cpu().numpy()
+            state.step += losses.numel()
+            timer.stop(loader.num_samples())
+            train_s = time.perf_counter() - t0
+            train_m = rank1_metrics(fetched[losses.numel():])
+            train_m["loss"] = float(np.mean(fetched[:losses.numel()]))
+            train_line = ("TRAIN:\t{r1i3:.2f}\t{r1i5:.2f}\t{r1i7:.2f}\t{miou:.2f}\t"
+                          .format(**train_m))
+            self.logger.info(f"Epoch {epoch}|{tcfg.epochs}: loss "
+                             f"{train_m['loss']:.4f} "
+                             f"({loader.num_samples() / train_s:.0f} pairs/s)")
+            self.logger.info(train_line)
+
+            t1 = time.perf_counter()
+            test_m = self.test()
+            eval_s = time.perf_counter() - t1
+            test_line = ("TEST:\t{r1i3:.2f}\t{r1i5:.2f}\t{r1i7:.2f}\t{miou:.2f}\t"
+                         .format(**test_m))
+            self.logger.info(test_line)
+            self.metrics.write("epoch", epoch=epoch, lr=cur_lr, train=train_m,
+                               test=test_m, pairs_per_sec=timer.pairs_per_sec,
+                               step_ms=timer.mean_step_ms, train_wall_s=train_s,
+                               eval_wall_s=eval_s)
+            self.last_epoch_wall = {"train_s": train_s, "eval_s": eval_s,
+                                    "steps": int(losses.numel())}
+
+            # keep the params of the best test R@1@0.7 (reference main.py:70-75)
+            if test_m["r1i7"] > best["r1i7"]:
+                best.update(r1i7=test_m["r1i7"], train_line=train_line,
+                            test_line=test_line, epoch=epoch,
+                            test_metrics=test_m, train_metrics=train_m,
+                            improved=True)
+                state.best_r1i7 = float(test_m["r1i7"])
+                _save_npz(os.path.join(model_dir, "best.npz"),
+                          to_jax_params(self.model))
+            state.epoch = epoch + 1
+            # the resume point, after the best checkpoint, so a resume's
+            # threshold matches the checkpoint on disk
+            every = tcfg.save_state_every
+            if every and state.epoch % every == 0 and state.epoch < tcfg.epochs:
+                self.save_state(os.path.join(model_dir, "state.pt"))
+            if epoch_callback is not None:
+                epoch_callback(epoch, test_m)
+        self.logger.info("Highest R1i7 epoch:\n%s\n%s",
+                         best["train_line"], best["test_line"])
+        best["pairs_per_sec"] = timer.pairs_per_sec
+        self.metrics.write("best", **{k: v for k, v in best.items()
+                                      if not k.endswith("_line")})
+        return best
+
+    # ------------------------------------------------------------------
     def save_state(self, path: str) -> None:
-        raise _slice3("Trainer.save_state")
+        """Params, optimizer moments, step, best R@1@0.7 and epochs done,
+        through ``torch.save`` (written to a temporary file, then renamed)."""
+        self._require_weights()
+        state = self.state
+        blob = {"params": {k: v.detach().cpu().clone()
+                           for k, v in self.model.state_dict().items()},
+                "opt": {name: {k: v.cpu().clone() for k, v in part.items()}
+                        for name, part in state.opt.state_dict().items()},
+                "step": state.step, "best_r1i7": state.best_r1i7,
+                "epoch": state.epoch}
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        tmp = path + ".tmp"
+        torch.save(blob, tmp)
+        os.replace(tmp, path)
 
     def load_state(self, path: str) -> None:
-        raise _slice3("Trainer.load_state")
+        """Resume from :meth:`save_state`'s file."""
+        if self.state is None:
+            self._fresh_state()
+        blob = torch.load(path, map_location=self.device, weights_only=True)
+        self.model.load_state_dict(blob["params"])
+        self.state.opt.load_state_dict(blob["opt"])
+        self.state.step = int(blob["step"])
+        self.state.best_r1i7 = float(blob["best_r1i7"])
+        self.state.epoch = int(blob["epoch"])
 
     def restore(self, path: Optional[str] = None) -> None:
-        raise _slice3("Trainer.restore")
+        """Load the best checkpoint (``<model_dir>/best.npz`` by default);
+        the optimizer state and counters are left as they are."""
+        if path is None:
+            path = os.path.join(os.path.abspath(self.config.model_dir()),
+                                "best.npz")
+        if not os.path.exists(path):
+            raise ValueError(f"no pre-trained model exists at {path}")
+        with np.load(path) as flat:
+            load_jax_params(self.model, dict(flat))
+        if self.state is None:
+            self._fresh_state()
+
+
+def _save_npz(path: str, flat: Mapping[str, np.ndarray]) -> None:
+    tmp = path[:-len(".npz")] + ".tmp.npz"
+    np.savez(tmp, **flat)
+    os.replace(tmp, path)

@@ -109,8 +109,10 @@ def _leaves(model: SeqPAN) -> Iterator[tuple[str, nn.Parameter, Move, Move]]:
 
 
 def to_jax_params(model: SeqPAN) -> dict[str, np.ndarray]:
-    """The port's weights as the JAX package's flat ``params.npz`` dict."""
-    return {key: np.ascontiguousarray(to_jax(p.detach().cpu().numpy()))
+    """The port's weights as the JAX package's flat ``params.npz`` dict: a
+    copy, never a view of a CPU parameter (a later update must not move a
+    snapshot)."""
+    return {key: np.array(to_jax(p.detach().cpu().numpy()), order="C", copy=True)
             for key, p, _, to_jax in _leaves(model)}
 
 

@@ -49,5 +49,5 @@ def test_chip_smoke_widths_are_the_configs(task):
 
 
 def test_bf16_compute_names_a_later_slice():
-    with pytest.raises(ValueError, match="training slice"):
+    with pytest.raises(ValueError, match="a later slice"):
         ModelConfig(compute_dtype="bf16")

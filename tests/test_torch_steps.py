@@ -8,7 +8,9 @@ in interpret mode).  The split has padded rows, a length-1 video, a one-word
 query and a ragged final batch padded by repetition, as the trainer builds it.
 
 Tolerances: IoUs atol 1e-6, logits rtol 1e-4 / atol 2e-4, match scores atol
-1e-5, indices exact; gathers are exact.
+1e-5, indices exact; gathers are exact.  The live MC passes (dropout at
+mc 0.5, gumbel noise) are checked for what they must do here; their
+distribution against the JAX package's is ``tests/test_torch_train.py``'s.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from hual_tpu.models.seqpan import SeqPAN as JaxSeqPAN
 from hual_tpu.runtime import steps as jsteps
 from hual_tpu.serve import _flatten_params
 from hual_tpu_torch.models.seqpan import SeqPAN
+from hual_tpu_torch.ops.masking import sequence_mask
 from hual_tpu_torch.runtime import steps
 from hual_tpu_torch.weights import load_jax_params
 
@@ -170,10 +173,32 @@ def test_backends_agree(sweeps):
 
 
 @pytest.mark.parametrize("sweep", ["infer_sweep", "fused_infer_sweep"])
-def test_stochastic_passes_raise(sweeps, sweep):
+def test_stochastic_passes_run(sweeps, sweep):
+    """At mc_droprate 0.5 the two stochastic passes run live: they differ
+    from the clean pass and from each other, replay from the same seed, and
+    leave the clean pass as it was.  With the gumbel head on they run live
+    at mc 0 too."""
     model, data, sels, wv, _ = sweeps
-    with pytest.raises(NotImplementedError, match="mc_droprate=0.5"):
-        getattr(steps, sweep)(model, data, sels, wv, mc_droprate=0.5)
-    gumbel = SeqPAN(vdim=V, **WIDTHS, use_gumbel=True).eval()
-    with pytest.raises(NotImplementedError, match="gumbel"):
-        getattr(steps, sweep)(gumbel, data, sels, wv)
+    fn = getattr(steps, sweep)
+    clean = fn(model, data, sels, wv)
+    out = fn(model, data, sels, wv, mc_droprate=0.5, seed=3)
+    for k in ("start_logits", "end_logits", "match_scores", "start_index",
+              "end_index", "ious"):
+        torch.testing.assert_close(out[k], clean[k], rtol=0, atol=0)
+    valid = sequence_mask(data["v_len"][sels.reshape(-1)], T).reshape(
+        *sels.shape, T).bool()
+    s0, s1, s2 = (out[k][valid] for k in ("start_logits", "start_logits1",
+                                           "start_logits2"))
+    assert (s1 != s0).float().mean() > 0.9 and (s1 != s2).float().mean() > 0.9
+    assert torch.isfinite(s1).all() and torch.isfinite(out["end_logits2"]).all()
+    again = fn(model, data, sels, wv, mc_droprate=0.5, seed=3)
+    torch.testing.assert_close(again["end_logits2"], out["end_logits2"],
+                               rtol=0, atol=0)
+    other = fn(model, data, sels, wv, mc_droprate=0.5, seed=4)
+    assert not torch.equal(other["start_logits1"], out["start_logits1"])
+
+    gumbel = SeqPAN(vdim=V, **WIDTHS, use_gumbel=True)
+    gumbel.load_state_dict(model.state_dict())
+    g = fn(gumbel, data, sels, wv)
+    assert not torch.equal(g["start_logits1"], g["start_logits"])
+    assert not torch.equal(g["start_logits1"], g["start_logits2"])

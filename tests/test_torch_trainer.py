@@ -6,8 +6,9 @@ with both sweep backends, on the CPU.  Metrics agree within 1e-6; the
 pickle has ``hual_tpu``'s keys, value types and dtypes, its logits agree
 within rtol 1e-4 / atol 2e-4, match scores within atol 1e-5 and indices
 exactly; ``hual_tpu.active.engine.update_labels`` selects the same records
-from either pickle.  Also: what raises NotImplementedError in this slice,
-and the device rule (the card unless ``device="cpu"``).
+from either pickle.  Also: the live MC passes written to the pickle, the
+weights rule and the training entry points, the options that still raise
+NotImplementedError, and the device rule (the card unless ``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -180,10 +181,26 @@ def test_unported_options_raise(world, train, match):
 
 
 @pytest.mark.parametrize("backend", ["flax", "fused"])
-def test_stochastic_infer_raises(world, backend, tmp_path):
-    with pytest.raises(NotImplementedError, match="mc_droprate"):
-        _port(world, backend, mc_droprate=0.5).infer_trainset(
-            save_path=str(tmp_path / "x.pkl"))
+def test_stochastic_infer_writes_live_passes(world, backend, tmp_path):
+    """mc_droprate 0.5 and the gumbel head write pickles whose MC logits
+    are live passes, while the clean pass stays the JAX package's."""
+    want = load_pickle(world[5])
+    path = str(tmp_path / "mc.pkl")
+    metrics = _port(world, backend, mc_droprate=0.5).infer_trainset(save_path=path)
+    for k, v in world[4].items():
+        assert abs(metrics[k] - v) < 1e-6, k
+    got = load_pickle(path)
+    for g, w in zip(got, want):
+        assert g["prop_idx"] == w["prop_idx"]
+        for a, b in zip(g["prop_logits"], w["prop_logits"]):
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=2e-4)
+        for k in ("prop_logits1", "prop_logits2"):
+            assert all(a.dtype == np.float32 and np.isfinite(a).all() for a in g[k])
+    assert any(not np.array_equal(g["prop_logits1"][0], g["prop_logits"][0])
+               for g in got)
+    assert any(not np.array_equal(g["prop_logits1"][1], g["prop_logits2"][1])
+               for g in got)
+
     root, dataset, flat, *_ = world
     d = _config(root, sweep_backend=backend)
     d["loss"] = {"no_gumbel": False}
@@ -191,23 +208,33 @@ def test_stochastic_infer_raises(world, backend, tmp_path):
     tr = Trainer(cfg, dataset, FeatureStore.from_dir(cfg.paths.feature_path, 8),
                  logger=LOGGER, device="cpu")
     tr.load_params(flat)
-    tr.test()                      # the deterministic eval runs
-    with pytest.raises(NotImplementedError, match="gumbel"):
-        tr.infer_trainset(save_path=str(tmp_path / "x.pkl"))
-    assert not os.path.exists(tmp_path / "x.pkl")
+    tr.test()
+    tr.infer_trainset(save_path=str(tmp_path / "gumbel.pkl"))
+    got = load_pickle(str(tmp_path / "gumbel.pkl"))
+    assert any(not np.array_equal(g["prop_logits1"][0], g["prop_logits2"][0])
+               for g in got)
 
 
-def test_training_waits_for_slice3_and_weights_are_required(world):
+def test_weights_are_required_and_training_runs(world, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)                     # train() writes ./logs
     root, dataset, *_ = world
-    cfg = Config.from_dict(_config(root))
+    cfg = Config.from_dict(_config(root, epochs=1))
+    cfg.paths.ckpt_dir = str(tmp_path / "ckpt")
     tr = Trainer(cfg, dataset, FeatureStore.from_dir(cfg.paths.feature_path, 8),
                  logger=LOGGER, device="cpu")
     with pytest.raises(RuntimeError, match="init_state"):
         tr.test()
-    for call in (tr.train, lambda: tr.save_state("s"), lambda: tr.load_state("s"),
-                 tr.restore):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            call()
+    with pytest.raises(RuntimeError, match="init_state"):
+        tr.save_state(str(tmp_path / "s.pt"))
+    with pytest.raises(ValueError, match="no pre-trained model"):
+        tr.restore()
+    best = tr.train()                               # initialises on its own
+    assert tr.state.epoch == 1 and tr.state.step == 4   # ceil(23 / 6)
+    assert best["improved"] and best["epoch"] == 0  # any R@1 beats -1
+    tr.save_state(str(tmp_path / "s.pt"))
+    tr.load_state(str(tmp_path / "s.pt"))
+    tr.restore()
+    tr.close()
 
 
 def test_trainer_needs_a_card_unless_cpu(world, monkeypatch):
