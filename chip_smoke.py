@@ -51,15 +51,30 @@ line; any failure exits non-zero before the last line:
    Charades and at ActivityNet width: loss components, grads and parameter
    deltas within the CPU tests' bounds, K1's indices equal to the plain
    decode's; (b) ``Trainer.train()`` for 2 epochs (the reference's 50, cut)
-   at batch 16, drop 0.2, ``span_decode: pallas``, ``sweep_backend:
-   fused``: per epoch the train seconds, steps/s, samples/s, mean loss, test
+   on the first 1,600 train queries (the full 776-step epoch is
+   loop_charades's round) at batch 16, drop 0.2, ``span_decode: pallas``,
+   ``sweep_backend: fused``: per epoch the train seconds, steps/s, samples/s, mean loss, test
    R@1/mIoU and the launches of K1 (one a train step and a test batch) and
    K2 (one a test batch); the loss must be finite and fall; (c) a
-   torch.profiler breakdown of 20 train steps; (d) a resume check on 1,024
+   torch.profiler breakdown of 20 train steps; (d) a resume check on 512
    queries under deterministic algorithms, bit-equal to the uninterrupted
    run; (e) the MC sweep at ``mc_droprate`` 0.5 with both backends, and
    live gumbel passes on a subset;
-9. kernels: one entry per ported kernel with its launches on the main
+9. loop_charades: the AL loop (``hual_tpu_torch.orchestrate``, ``cli``,
+   ``active``), in the build directory: (a) ``update_labels`` on the sweep
+   pickle at Charades-STA size (12,408 records; 6,204 selected, one oracle
+   point each, positive iff inside the GT index span); (b)
+   ``run_rounds(start_round=1, rounds=1)`` at Charades width, 1 epoch (the
+   reference's 50, cut), on the train phase's table (the same tensor) and
+   from its model's MC pickle: seconds of the update, train and infer
+   stages, best R@1@0.7, K1 and K2 launches equal to the steps and batches
+   run; (c) re0 train and infer through ``cli.main``, then
+   ``orchestrate.main`` for 2 rounds on the dataset and schedule of
+   ``tools/synthetic_quality_comparison.py``: round 1's old pseudo-mIoU
+   0.5565 (the same dataset), each round's pseudo-mIoU inside
+   ``hual_tpu``'s and the reference's seed band, launches equal to the
+   epochs' steps and batches;
+10. kernels: one entry per ported kernel with its launches on the main
    paths and its check against the plain version; the seconds per phase.
 
 The last line is ``{"ok": true, "device": {...}}``.
@@ -90,6 +105,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # imported before anything is printed: outside a checkout this fails at once
+from hual_tpu_torch import cli, orchestrate  # noqa: E402
+from hual_tpu_torch.active.engine import update_labels  # noqa: E402
 from hual_tpu_torch.config import Config, apply_matmul_precision  # noqa: E402
 from hual_tpu_torch.data.datasets import gen_or_load_dataset  # noqa: E402
 from hual_tpu_torch.data.features import (FeatureStore,  # noqa: E402
@@ -108,6 +125,7 @@ from hual_tpu_torch.ops.optim import make_optimizer  # noqa: E402
 from hual_tpu_torch.runtime import steps  # noqa: E402
 from hual_tpu_torch.runtime.trainer import Trainer  # noqa: E402
 from hual_tpu_torch.serve import Predictor, export_bundle  # noqa: E402
+from hual_tpu_torch.utils.metrics import time_to_index_al  # noqa: E402
 from hual_tpu_torch.weights import _leaves, load_jax_params, to_jax_params  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -893,7 +911,7 @@ def sweep_phase(workdir: str, config, store, dataset) -> dict:
 # the train section of configs/charades/SeqPAN.yaml; 50 epochs cut to 2
 TRAIN = dict(epochs=2, batch_size=16, lr=1e-4, droprate=0.2, clip_norm=1.0,
              weight_decay=0.01)
-RESUME_QUERIES, PROFILE_STEPS, GUMBEL_QUERIES = 1024, 20, 960
+TRAIN_QUERIES, RESUME_QUERIES, PROFILE_STEPS, GUMBEL_QUERIES = 1600, 512, 20, 960
 
 
 def train_config(config, ckpt_dir: str, **train):
@@ -1119,12 +1137,14 @@ def train_phase(workdir: str, config, store, dataset, table) -> dict:
     step_rows.append(step_against_cpu(anet_widths, anet, probe.word_vectors))
     del probe
 
-    # (b) Trainer.train() for 2 epochs
+    # (b) Trainer.train() for 2 epochs on a subset: loop_charades trains a
+    # full-size epoch
+    sub = dict(dataset, train_set=dataset["train_set"][:TRAIN_QUERIES])
     epochs = []
     here = os.getcwd()
     os.chdir(workdir)                        # train() writes ./logs/<task>/
     try:
-        tr = Trainer(cfg, dataset, store, logger=logging.getLogger("chip_smoke.train"),
+        tr = Trainer(cfg, sub, store, logger=logging.getLogger("chip_smoke.train"),
                      device_features=table, device=DEVICE)
         tr.init_state()
         n_steps = math.ceil(len(tr.train_set) / TRAIN["batch_size"])
@@ -1184,8 +1204,11 @@ def train_phase(workdir: str, config, store, dataset, table) -> dict:
 
     resume = resume_check(workdir, config, dataset, store, table)
     mc = mc_sweeps(workdir, config, dataset, store, table, flat)
+    warm = {"features": tr.features, "device_features": tr.export_device_features(),
+            "dataset": dataset}
     emit({"train_charades": {
-        "card": CARD[0], "reduced": {"epochs": "50 -> 2"},
+        "card": CARD[0], "reduced": {"epochs": "50 -> 2",
+                                       "train_queries": f"12,408 -> {TRAIN_QUERIES}"},
         "config": dict(TRAIN, span_decode="pallas", sweep_backend="fused",
                        T=CHARADES["max_vlen"], dim=CHARADES["dim"],
                        heads=CHARADES["num_heads"], attn_layer=CHARADES["attn_layer"]),
@@ -1201,7 +1224,250 @@ def train_phase(workdir: str, config, store, dataset, table) -> dict:
                   "losses and IoUs; step_ms_host_clock: 20 steps after training, "
                   "ending in a synchronize; profile: torch.profiler over 20 steps; "
                   "mc seconds: host clock around infer_trainset() (pickle included)"}})
-    return {"train": launches, "mc_sweep_fused": mc["fused"]["launches"]}
+    return {"train": launches, "mc_sweep_fused": mc["fused"]["launches"]}, warm
+
+
+# -- phase 9 ------------------------------------------------------------------
+# tools/synthetic_quality_comparison.py:260-261 and its schedule: 15 epochs,
+# re0 + 2 rounds, mc_droprate 0, train seed 12345
+QUALITY_DATA = dict(n_train=600, n_test=300, vdim=128, max_raw_len=64, seed=31)
+QUALITY_TRAIN = dict(TRAIN, epochs=15, mc_droprate=0.0, seed=12345)
+QUALITY_ROUNDS = 2
+# round 1's old pseudo-mIoU there (ref_initial_old in
+# results/synthetic_quality_comparison.json): the same dataset gives it
+QUALITY_OLD_MIOU = 0.5565
+# the union of the reference's and hual_tpu's pseudo-mIoU over their seeds
+# (ROADMAP.md, "Last evidence PRs"; results/synthetic_quality_comparison.json),
+# widened by 0.006, the widest across-seed spread at any round
+QUALITY_BANDS = {1: (0.568, 0.590), 2: (0.588, 0.606)}
+
+
+def launch_counts() -> dict:
+    return {"span_decode": k1.span_decode.launches,
+            "fused_forward": k2.fused_forward.launches}
+
+
+def loop_tree(workdir: str, config) -> str:
+    """A round-0 tree for the sweep dataset: its records are the GT
+    (``charades_gt``), and round 0's pseudo spans are them jittered by up
+    to 25% of the duration."""
+    rng = np.random.default_rng(SEED + 6)
+    src = os.path.dirname(config.paths.train_path)
+    data = os.path.join(workdir, "loop", "data")
+    for sub in ("charades_gt", "charades_re0"):
+        os.makedirs(os.path.join(data, sub))
+        shutil.copy(os.path.join(src, "test.json"), os.path.join(data, sub))
+    shutil.copy(os.path.join(src, "train.json"), os.path.join(data, "charades_gt"))
+    with open(os.path.join(src, "train.json")) as f:
+        records = json.load(f)
+    for rec in records:
+        dur, (s, e) = rec[1], rec[2]
+        s2, e2 = np.clip(np.array([s, e]) + rng.uniform(-0.25, 0.25, 2) * dur, 0, dur)
+        if e2 <= s2:
+            s2, e2 = 0.0, dur
+        rec[2] = [round(float(s2), 2), round(float(e2), 2)]
+    with open(os.path.join(data, "charades_re0", "train.json"), "w") as f:
+        json.dump(records, f)
+    return data
+
+
+def check_update(data: str, stats: dict, pkl_rows: list) -> dict:
+    """One point on each selected record, none elsewhere, positive iff it
+    lies inside the GT index span."""
+    with open(os.path.join(data, "charades_gt", "train.json")) as f:
+        gt = json.load(f)
+    with open(os.path.join(data, "charades_re1", "train.json")) as f:
+        new = json.load(f)
+    n = len(gt)
+    check(len(new) == n == len(pkl_rows), f"update: {len(new)} records for {n}")
+    selected = set(stats["selected_idx"])
+    check(stats["n_selected"] == len(selected) == math.ceil(n / 2),
+          f"update: {stats['n_selected']} selected of {n}")
+    counts = {"pos": 0, "neg": 0}
+    for i, (rec, g, row) in enumerate(zip(new, gt, pkl_rows)):
+        ap = rec[4]
+        points = ap["pos_idx"] + ap["neg_idx"]
+        check(len(points) == (i in selected), f"update: record {i} has points {ap}")
+        if points:
+            gs, ge = time_to_index_al(g[2], g[1], row["v_len"])
+            positive = bool(ap["pos_idx"])
+            check(positive == (gs <= points[0] <= ge),
+                  f"update: record {i}: point {points[0]}, GT {gs}-{ge}, {ap}")
+            counts["pos" if positive else "neg"] += 1
+    return {"records": n, "selected": len(selected), "points": counts}
+
+
+def full_width_round(workdir: str, config, data: str, warm: dict) -> dict:
+    """(a) the label update on the sweep pickle at Charades-STA size;
+    (b) run_rounds(start_round=1, rounds=1) at Charades width, 1 epoch, on
+    the train phase's table, from the train phase's model's MC pickle."""
+    root = os.path.dirname(data)
+    # (a)
+    results = os.path.join(root, "results_update")
+    os.makedirs(os.path.join(results, "charades"))
+    shutil.copy(os.path.join(workdir, "fused.pkl"),
+                os.path.join(results, "charades", "re0.pkl"))
+    t0 = time.perf_counter()
+    stats = update_labels("charades", 1, data_root=data, results_root=results)
+    update_s = time.perf_counter() - t0
+    with open(os.path.join(results, "charades", "re0.pkl"), "rb") as f:
+        rows = pickle.load(f)
+    update = {"seconds": update_s, "old_miou": stats["old_miou"],
+              "new_miou": stats["new_miou"], **check_update(data, stats, rows),
+              "pickle": "sweep_charades's fused pickle (random weights, mc 0)"}
+
+    # (b)
+    cfg = train_config(config, os.path.join(root, "ckpt"), epochs=1)
+    cfg.suffix = ""
+    cfg.paths.cache_dir = os.path.join(root, "data_pkl")
+    cfg.paths.train_path = os.path.join(data, "charades_gt", "train.json")
+    cfg.paths.test_path = os.path.join(data, "charades_gt", "test.json")
+    base_path = os.path.join(root, "configs", "SeqPAN.yaml")
+    cfg.save(base_path)
+    results = os.path.join(root, "results")
+    os.makedirs(os.path.join(results, "charades"))
+    shutil.copy(os.path.join(workdir, "mc_fused.pkl"),
+                os.path.join(results, "charades", "re0.pkl"))
+    stages, built = {}, []
+    real_update, real_build = orchestrate.update_labels, cli.build_trainer
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            before, t0 = launch_counts(), time.perf_counter()
+            out = fn(*args, **kw)
+            stages[name] = {"seconds": time.perf_counter() - t0,
+                            **{k: v - before[k] for k, v in launch_counts().items()}}
+            return out
+        return run
+
+    def build(c, **kw):
+        tr = real_build(c, **kw)
+        tr.train, tr.infer_trainset = timed("train", tr.train), timed("infer", tr.infer_trainset)
+        built.append(tr)
+        return tr
+
+    orchestrate.update_labels, cli.build_trainer = timed("update", real_update), build
+    here = os.getcwd()
+    os.chdir(root)                          # the loop writes ./logs/<task>/
+    try:
+        k1.span_decode.launches = k2.fused_forward.launches = 0   # main path starts
+        t0 = time.perf_counter()
+        history = orchestrate.run_rounds("charades", rounds=1, start_round=1,
+                                         base_config_path=base_path, data_root=data,
+                                         results_root=results, warm_start=warm,
+                                         device=DEVICE)
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()                                 # main path ends
+    finally:
+        os.chdir(here)
+        orchestrate.update_labels, cli.build_trainer = real_update, real_build
+    tr = built[-1]
+    check(len(built) == 1 and tr.export_device_features()[0] is warm["device_features"][0],
+          "the round did not reuse the train phase's table on the card")
+    n_steps = math.ceil(len(tr.train_set) / cfg.train.batch_size)
+    n_test = math.ceil(len(tr.test_set) / cfg.eval_batch_size)
+    n_infer = math.ceil(len(tr.train_set) / cfg.infer_batch_size)
+    want = {"span_decode": n_steps + n_test + n_infer, "fused_forward": n_test + n_infer}
+    check(launches == want, f"round at full width: launches {launches}, want {want} "
+                            f"({n_steps} steps, {n_test} test, {n_infer} infer batches)")
+    check(os.path.exists(os.path.join(results, "charades", "re1.pkl"))
+          and os.path.exists(os.path.join(root, "configs", "SeqPAN_re1.yaml")),
+          "the round wrote no pickle or derived config")
+    h = history[0]
+    return {"update": update, "round": {
+        "seconds": seconds, "stages": stages, "launches": launches,
+        "steps": n_steps, "test_batches": n_test, "infer_batches": n_infer,
+        "best_r1i7": h["best"]["r1i7"], "best_test": h["best"]["test_metrics"],
+        "infer": h["infer"], "old_miou": h["label_stats"]["old_miou"],
+        "new_miou": h["label_stats"]["new_miou"], "table_reused": True,
+        "re0_pickle": "the train phase's model, MC sweep at 0.5 (fused)"}}
+
+
+def quality_loop(workdir: str) -> dict:
+    """(c) re0 train and infer through the CLI, then orchestrate.main for 2
+    rounds, on tools/synthetic_quality_comparison.py's dataset and schedule;
+    the pseudo-mIoU of each round against hual_tpu's and the reference's
+    seed band."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from make_synthetic_data import make_dataset
+
+    root = os.path.join(workdir, "quality")
+    make_dataset(root, task="charades", **QUALITY_DATA)
+    base = Config.from_dict({
+        "task": "charades",
+        "paths": {"ckpt_dir": "./ckpt", "cache_dir": "./data_pkl/",
+                  "feature_path": "./data/features/charades_i3d",
+                  "glove_path": "./data/glove/glove.840B.300d.txt",
+                  "train_path": "./data/charades_gt/train.json",
+                  "test_path": "./data/charades_gt/test.json"},
+        "train": dict(QUALITY_TRAIN, sweep_backend="fused"),
+        "model": dict(CHARADES, vdim=QUALITY_DATA["vdim"], span_decode="pallas")})
+    base_path = os.path.join(root, "configs", "charades", "SeqPAN.yaml")
+    re0_path = os.path.join(root, "configs", "charades", "SeqPAN_re0.yaml")
+    base.save(base_path)
+    base.derive_round(0).save(re0_path)
+    here = os.getcwd()
+    os.chdir(root)
+    try:
+        k1.span_decode.launches = k2.fused_forward.launches = 0   # main path starts
+        t0 = time.perf_counter()
+        check(cli.main(["--config", re0_path, "--mode", "train", "--suffix", "re0"]) == 0
+              and cli.main(["--config", re0_path, "--mode", "infer_trainset",
+                            "--suffix", "re0"]) == 0, "the re0 CLI runs failed")
+        re0_s = time.perf_counter() - t0
+        check(orchestrate.main(["charades", "--config", base_path,
+                                "--rounds", str(QUALITY_ROUNDS)]) == 0, "orchestrate.main")
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()                                 # main path ends
+        with open(os.path.join("results", "charades", "rounds_summary.json")) as f:
+            summary = json.load(f)
+        with open(os.path.join("logs", "charades", "metrics_re0.jsonl")) as f:
+            re0_best = [json.loads(line) for line in f][-1]
+    finally:
+        os.chdir(here)
+    n_train, n_test = QUALITY_DATA["n_train"], QUALITY_DATA["n_test"]
+    runs, epochs = 1 + QUALITY_ROUNDS, QUALITY_TRAIN["epochs"]
+    test_batches, infer_batches = math.ceil(n_test / 96), math.ceil(n_train / 96)
+    want = {"span_decode": runs * (epochs * (math.ceil(n_train / 16) + test_batches)
+                                   + infer_batches),
+            "fused_forward": runs * (epochs * test_batches + infer_batches)}
+    check(launches == want, f"quality loop: launches {launches}, want {want}")
+    check([h["round"] for h in summary] == [1, 2], f"rounds {summary}")
+    old = summary[0]["label_stats"]["old_miou"]
+    check(round(old, 4) == QUALITY_OLD_MIOU,
+          f"round 1's old pseudo-mIoU {old}: not the comparison's dataset")
+    pseudo = {h["round"]: h["label_stats"]["new_miou"] for h in summary}
+    for r, (lo, hi) in QUALITY_BANDS.items():
+        check(lo <= pseudo[r] <= hi,
+              f"round {r}: pseudo-mIoU {pseudo[r]} outside the seed band [{lo}, {hi}]")
+    with open(os.path.join(ROOT, "results", "synthetic_quality_comparison.json")) as f:
+        recorded = json.load(f)
+    return {
+        "dataset": QUALITY_DATA, "config": dict(QUALITY_TRAIN, rounds=QUALITY_ROUNDS,
+                                                vdim=QUALITY_DATA["vdim"]),
+        "seconds": seconds, "re0_seconds": re0_s, "launches": launches,
+        "old_miou_round1": old, "pseudo_miou": pseudo, "bands": QUALITY_BANDS,
+        "best_test": {0: re0_best["test_metrics"],
+                      **{h["round"]: h["best"]["test_metrics"] for h in summary}},
+        "hual_tpu_best_test": {o["train_seed"]: o["rounds"] for o in recorded["ours"]},
+        "hual_tpu_pseudo_miou": recorded["label_quality"]["rounds"],
+        "note": "best test R@1 at 300 test queries is training noise: printed, "
+                "not checked"}
+
+
+def loop_phase(workdir: str, config, warm: dict) -> dict:
+    """Phase 9; returns the loop's launch counts."""
+    data = loop_tree(workdir, config)
+    full = full_width_round(workdir, config, data, warm)
+    quality = quality_loop(workdir)
+    emit({"loop_charades": {
+        "card": CARD[0], "reduced": {"epochs": "50 -> 1 (full-width round)"},
+        **full, "quality": quality,
+        "timing": "seconds: host clock; stages: host clock around the label "
+                  "update, Trainer.train() and infer_trainset() of the round "
+                  "(each ending in a host fetch or the pickle write)"}})
+    return {k: full["round"]["launches"][k] + quality["launches"][k]
+            for k in ("span_decode", "fused_forward")}
 
 
 def main() -> None:
@@ -1231,8 +1497,9 @@ def main() -> None:
         k2_main = timed("fused_forward", fused_forward_phase, dataset["max_wlen"])
         sweep_launches, table = timed("sweep_charades", sweep_phase, workdir, config,
                                       store, dataset)
-        train_launches = timed("train_charades", train_phase, workdir, config, store,
-                               dataset, table)
+        train_launches, warm = timed("train_charades", train_phase, workdir, config,
+                                     store, dataset, table)
+        loop_launches = timed("loop_charades", loop_phase, workdir, config, warm)
     emit({"phase_seconds": seconds, "card": CARD[0]})
     emit({"kernels": [{
         "name": "span_decode", "route": "cuda",
@@ -1240,12 +1507,14 @@ def main() -> None:
         "replaces": "hual_tpu/ops/pallas/span_decode.py:33",
         "launches": (serve_launches + sweep_launches["span_decode"]
                      + train_launches["train"]["span_decode"]
-                     + train_launches["mc_sweep_fused"]["span_decode"]),
+                     + train_launches["mc_sweep_fused"]["span_decode"]
+                     + loop_launches["span_decode"]),
         "launches_by_path": {"serve": serve_launches,
                              "sweep_fused": sweep_launches["span_decode"],
                              "train": train_launches["train"]["span_decode"],
                              "mc_sweep_fused":
-                                 train_launches["mc_sweep_fused"]["span_decode"]},
+                                 train_launches["mc_sweep_fused"]["span_decode"],
+                             "loop": loop_launches["span_decode"]},
         "max_abs_err": k1_main["max_abs_err"],
         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
@@ -1255,11 +1524,13 @@ def main() -> None:
         "replaces": "hual_tpu/ops/pallas/fused_forward.py:438",
         "launches": (sweep_launches["fused_forward"]
                      + train_launches["train"]["fused_forward"]
-                     + train_launches["mc_sweep_fused"]["fused_forward"]),
+                     + train_launches["mc_sweep_fused"]["fused_forward"]
+                     + loop_launches["fused_forward"]),
         "launches_by_path": {"sweep_fused": sweep_launches["fused_forward"],
                              "train": train_launches["train"]["fused_forward"],
                              "mc_sweep_fused":
-                                 train_launches["mc_sweep_fused"]["fused_forward"]},
+                                 train_launches["mc_sweep_fused"]["fused_forward"],
+                             "loop": loop_launches["fused_forward"]},
         "max_abs_err": k2_main["max_abs_err"],
         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],

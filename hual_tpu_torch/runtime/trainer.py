@@ -8,7 +8,7 @@ linear LR decay per epoch, one train step per batch, a test sweep each
 epoch, the best R@1@0.7 params kept as a checkpoint, and a full-state save
 every ``train.save_state_every`` epochs for resume.  ``test()`` gives R@1
 and mIoU of a split; ``infer_trainset()`` writes the round pickle with the
-reference schema, which ``hual_tpu.active.engine.update_labels`` reads.
+reference schema, which ``active.engine.update_labels`` reads.
 ``train.sweep_backend`` picks the eager model (``flax``) or K2 + K1
 (``fused``) for the sweeps, see ``runtime/steps.py``.
 

@@ -52,6 +52,7 @@ def test_serve_imports_with_jax_blocked():
         "import hual_tpu_torch.serve, chip_smoke\n"
         "import hual_tpu_torch.runtime.trainer\n"
         "import hual_tpu_torch.ops.kernels.fused_forward\n"
+        "import hual_tpu_torch.orchestrate, hual_tpu_torch.cli\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'hual_tpu') and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"

@@ -5,8 +5,8 @@ loads them (``load_params``) and runs ``test()`` and ``infer_trainset()``
 with both sweep backends, on the CPU.  Metrics agree within 1e-6; the
 pickle has ``hual_tpu``'s keys, value types and dtypes, its logits agree
 within rtol 1e-4 / atol 2e-4, match scores within atol 1e-5 and indices
-exactly; ``hual_tpu.active.engine.update_labels`` selects the same records
-from either pickle.  Also: the live MC passes written to the pickle, the
+exactly; ``hual_tpu``'s and the port's ``update_labels`` write the same
+``train.json`` from either pickle.  Also: the live MC passes written to the pickle, the
 weights rule and the training entry points, the options that still raise
 NotImplementedError, and the device rule (the card unless ``device="cpu"``).
 """
@@ -33,6 +33,7 @@ from hual_tpu.data.features import FeatureStore as JaxFeatureStore  # noqa: E402
 from hual_tpu.runtime.trainer import Trainer as JaxTrainer  # noqa: E402
 from hual_tpu.serve import _flatten_params  # noqa: E402
 from hual_tpu.utils.io import load_json, load_pickle  # noqa: E402
+from hual_tpu_torch.active.engine import update_labels as port_update_labels  # noqa: E402
 from hual_tpu_torch.config import Config, resolve_device  # noqa: E402
 from hual_tpu_torch.data.features import FeatureStore  # noqa: E402
 from hual_tpu_torch.runtime.trainer import Trainer  # noqa: E402
@@ -118,24 +119,32 @@ def test_infer_trainset_pickle_matches(world, backend, tmp_path):
 
 
 def test_update_labels_reads_the_port_pickle(world, tmp_path):
+    """Both engines (``hual_tpu.active`` and the port's ``active``) on both
+    pickles (``hual_tpu``'s and the port's): one train.json, byte for byte."""
     root, *_, jax_pkl = world
-    stats = {}
+    stats, files = {}, {}
     for name, make in (("jax", lambda p: shutil.copy(jax_pkl, p)),
                        ("port", lambda p: _port(world, "fused").infer_trainset(
                            save_path=p))):
-        base = tmp_path / name
-        for sub in ("charades_gt", "charades_re0"):
-            shutil.copytree(os.path.join(root, "data", sub), base / "data" / sub)
-        pkl = base / "results" / "charades" / "re0.pkl"
-        pkl.parent.mkdir(parents=True)
-        make(str(pkl))
-        stats[name] = update_labels("charades", 1, data_root=str(base / "data"),
-                                    results_root=str(base / "results"))
-        stats[name]["records"] = load_json(
-            str(base / "data" / "charades_re1" / "train.json"))
-    assert stats["port"]["selected_idx"] == stats["jax"]["selected_idx"]
-    assert len(stats["port"]["selected_idx"]) > 0
-    assert stats["port"]["records"] == stats["jax"]["records"]
+        for engine, update in (("jax", update_labels),
+                               ("port", port_update_labels)):
+            base = tmp_path / name / engine
+            for sub in ("charades_gt", "charades_re0"):
+                shutil.copytree(os.path.join(root, "data", sub), base / "data" / sub)
+            pkl = base / "results" / "charades" / "re0.pkl"
+            pkl.parent.mkdir(parents=True)
+            make(str(pkl))
+            stats[name, engine] = update("charades", 1, data_root=str(base / "data"),
+                                         results_root=str(base / "results"))
+            path = base / "data" / "charades_re1" / "train.json"
+            stats[name, engine]["records"] = load_json(str(path))
+            files[name, engine] = path.read_bytes()
+    for name in ("jax", "port"):
+        assert files[name, "port"] == files[name, "jax"], name
+        assert stats[name, "port"]["selected_idx"] == stats[name, "jax"]["selected_idx"]
+    assert stats["port", "port"]["selected_idx"] == stats["jax", "jax"]["selected_idx"]
+    assert len(stats["port", "port"]["selected_idx"]) > 0
+    assert stats["port", "port"]["records"] == stats["jax", "jax"]["records"]
 
 
 def test_init_state_is_seeded_and_table_is_reused(world):
