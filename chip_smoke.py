@@ -9,8 +9,9 @@ line; any failure exits non-zero before the last line:
    the TF32 flags after the port pins full fp32;
 2. build: every kernel of ``hual_tpu_torch/csrc`` compiled for sm_90a, one
    nvcc per source, all started together; ptxas's registers and spills per
-   kernel (any spill fails), and the count of DMMA (f64 tensor-core)
-   instructions in K2's SASS by ``cuobjdump -sass`` (0 fails);
+   kernel (any spill fails), and the counts of DMMA (f64 tensor-core) and
+   HMMA (bf16 tensor-core, K2's ``mxu_bf16`` path) instructions in K2's
+   SASS by ``cuobjdump -sass`` (0 of either fails);
 3. span_decode: the kernel against its plain PyTorch version on the card,
    at the main path's shapes and larger (up to T=128), with crafted rows
    (all-equal probabilities, ties, a suffix maximum in a later 32-position
@@ -56,11 +57,29 @@ line; any failure exits non-zero before the last line:
    ``sweep_backend: fused``: per epoch the train seconds, steps/s, samples/s, mean loss, test
    R@1/mIoU and the launches of K1 (one a train step and a test batch) and
    K2 (one a test batch); the loss must be finite and fall; (c) a
-   torch.profiler breakdown of 20 train steps; (d) a resume check on 512
-   queries under deterministic algorithms, bit-equal to the uninterrupted
-   run; (e) the MC sweep at ``mc_droprate`` 0.5 with both backends, and
-   live gumbel passes on a subset;
-9. loop_charades: the AL loop (``hual_tpu_torch.orchestrate``, ``cli``,
+   torch.profiler breakdown of 20 train steps; (d) a resume check in a
+   fresh process (``--resume-worker``) through ``cli.main`` with
+   ``--deterministic``, on a synthetic set of 512 train queries at
+   Charades width: an uninterrupted 2-epoch run, one stopped after epoch 0
+   and its resume from ``state.pt``, bit-equal; and the ms of a train step
+   with deterministic algorithms on and off; (e) the MC sweep at
+   ``mc_droprate`` 0.5 with both backends, and live gumbel passes on a
+   subset;
+9. bf16_charades, K2's ``mxu_bf16`` path and the bf16 options: (a) K2 with
+   bf16 products against its plain version in f64 without rounding, at
+   (96,64,13), (32,100,30) and (3,17,5): (B) |x - f64| <= 0.05 + 0.03 *
+   max|f64| on logits and <= max(0.05, 1.5 x the plain bf16 version's own
+   distance) on match scores, (S) rms(x - f64) /
+   rms(plain bf16 - f64) in [0.5, 2], (R) rms(x - f64) > 100 * rms(K2 f32 -
+   f64); times beside K2 f32's and the bf16 FLOP bound; (b) the test sweep
+   and ``infer_trainset()`` with ``fused_mxu_bf16``: bf16 K2 launches equal
+   the batches, R@1/mIoU and equal spans beside the f32 sweep's; (c) one
+   epoch of ``Trainer.train()`` at ``compute_dtype: bfloat16`` on the train
+   phase's 1,600 queries: the loss finite and falling, K1 once a step; (d)
+   ``infer_trainset()`` at ``mc_droprate`` 0.5 with ``mc_dtype: bfloat16``
+   over 20 batches of 96: clean outputs bit-equal to the f32 trainer's, MC
+   logits finite and live;
+10. loop_charades: the AL loop (``hual_tpu_torch.orchestrate``, ``cli``,
    ``active``), in the build directory: (a) ``update_labels`` on the sweep
    pickle at Charades-STA size (12,408 records; 6,204 selected, one oracle
    point each, positive iff inside the GT index span); (b)
@@ -74,8 +93,9 @@ line; any failure exits non-zero before the last line:
    0.5565 (the same dataset), each round's pseudo-mIoU inside
    ``hual_tpu``'s and the reference's seed band, launches equal to the
    epochs' steps and batches;
-10. kernels: one entry per ported kernel with its launches on the main
-   paths and its check against the plain version; the seconds per phase.
+11. kernels: one entry per ported kernel (K2's bf16 path apart) with its
+   launches on the main paths and its check against the plain version; the
+   seconds per phase.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -97,36 +117,32 @@ import sys
 import tempfile
 import time
 
-# cuBLAS reads this when it starts; the resume check needs it for
-# deterministic products (train_charades)
-os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-
-import numpy as np  # noqa: E402
-import torch  # noqa: E402
+import numpy as np
+import torch
 
 # imported before anything is printed: outside a checkout this fails at once
-from hual_tpu_torch import cli, orchestrate  # noqa: E402
-from hual_tpu_torch.active.engine import update_labels  # noqa: E402
-from hual_tpu_torch.config import Config, apply_matmul_precision  # noqa: E402
-from hual_tpu_torch.data.datasets import gen_or_load_dataset  # noqa: E402
-from hual_tpu_torch.data.features import (FeatureStore,  # noqa: E402
+from hual_tpu_torch import cli, orchestrate
+from hual_tpu_torch.active.engine import update_labels
+from hual_tpu_torch.config import Config, apply_matmul_precision
+from hual_tpu_torch.data.datasets import gen_or_load_dataset
+from hual_tpu_torch.data.features import (FeatureStore,
                                           visual_feature_sampling)
-from hual_tpu_torch.data.labels_device import make_span_labels_device  # noqa: E402
-from hual_tpu_torch.data.loader import EvalLoader  # noqa: E402
-from hual_tpu_torch.data.vocab import PAD, UNK  # noqa: E402
-from hual_tpu_torch.models.seqpan import SeqPAN  # noqa: E402
-from hual_tpu_torch.ops import decode  # noqa: E402
-from hual_tpu_torch.ops.fused_forward import (PackedWeights,  # noqa: E402
+from hual_tpu_torch.data.labels_device import make_span_labels_device
+from hual_tpu_torch.data.loader import EvalLoader
+from hual_tpu_torch.data.vocab import PAD, UNK
+from hual_tpu_torch.models.seqpan import SeqPAN
+from hual_tpu_torch.ops import decode
+from hual_tpu_torch.ops.fused_forward import (PackedWeights,
                                               forward_math, pack_weights)
-from hual_tpu_torch.ops.kernels import build  # noqa: E402
-from hual_tpu_torch.ops.kernels import fused_forward as k2  # noqa: E402
-from hual_tpu_torch.ops.kernels import span_decode as k1  # noqa: E402
-from hual_tpu_torch.ops.optim import make_optimizer  # noqa: E402
-from hual_tpu_torch.runtime import steps  # noqa: E402
-from hual_tpu_torch.runtime.trainer import Trainer  # noqa: E402
-from hual_tpu_torch.serve import Predictor, export_bundle  # noqa: E402
-from hual_tpu_torch.utils.metrics import time_to_index_al  # noqa: E402
-from hual_tpu_torch.weights import _leaves, load_jax_params, to_jax_params  # noqa: E402
+from hual_tpu_torch.ops.kernels import build
+from hual_tpu_torch.ops.kernels import fused_forward as k2
+from hual_tpu_torch.ops.kernels import span_decode as k1
+from hual_tpu_torch.ops.optim import make_optimizer
+from hual_tpu_torch.runtime import steps
+from hual_tpu_torch.runtime.trainer import Trainer
+from hual_tpu_torch.serve import Predictor, export_bundle
+from hual_tpu_torch.utils.metrics import time_to_index_al
+from hual_tpu_torch.weights import _leaves, load_jax_params, to_jax_params
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
@@ -144,8 +160,8 @@ DECODE_SHAPES = ((8, 64), (32, 64), (96, 64), (32, 100), (96, 100), (256, 100),
                  (96, 128), (5, 33), (3, 1))   # the last two: a ragged block, T=1
 MAIN_SHAPE = (96, 64)       # the span decode of one batch-96 Charades chunk
 # NVIDIA's data-sheet peaks of the H100 SXM at 700 W: device memory bytes/s,
-# fp32 FLOP/s outside the tensor cores
-HBM_BYTES_PER_S, FP32_FLOPS = 3.35e12, 67e12
+# fp32 FLOP/s outside the tensor cores, dense bf16 FLOP/s on the tensor cores
+HBM_BYTES_PER_S, FP32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
 CARD: list[str] = []        # nvidia-smi's name and power limit, once known
 
 
@@ -215,11 +231,14 @@ def device_times_ms(fn, per_round: int, rounds: int = 1,
                                       "host_ms_per_call": host_ms}
 
 
-def launch_ms(profile: dict) -> tuple[float, float]:
+def launch_ms(profile: dict) -> tuple[float | None, float]:
     """(ms in the kernel per launch, launches captured per call) of the top
     kernel of a profile whose calls launch one kernel each.  The profiler
     may capture fewer launches than calls were made, so the time is taken
-    per captured launch, not per call."""
+    per captured launch, not per call; it may also record none (PERF.md
+    §7), and then the time is None: not measured."""
+    if "top_kernels" not in profile:
+        return None, 0.0
     k = profile["top_kernels"][0]
     return k["ms_per_call"] / k["launches_per_call"], k["launches_per_call"]
 
@@ -274,6 +293,18 @@ def device_profile(fn, calls: int = 3, top: int = 12, match: str = "") -> dict:
             "top_kernels": [{"name": name[:80], "ms_per_call": us / calls / 1e3,
                              "launches_per_call": n / calls}
                             for name, (us, n) in ranked]}
+
+
+def launch_counts() -> dict:
+    """The kernels' launch counts: K1, K2's f64 and bf16 product paths."""
+    return {"span_decode": k1.span_decode.launches,
+            "fused_forward": k2.fused_forward.launches,
+            "fused_forward_bf16": k2.fused_forward.launches_bf16}
+
+
+def reset_launches() -> None:
+    k1.span_decode.launches = k2.fused_forward.launches = 0
+    k2.fused_forward.launches_bf16 = 0
 
 
 # -- phase 1 ------------------------------------------------------------------
@@ -339,11 +370,15 @@ def build_kernels() -> None:
             check(r.get("spill_bytes", 0) == 0, f"{n}: ptxas spills in {k}: {r}")
     dmma = sass_count("fused_forward", "DMMA")
     check(dmma > 0, "K2's SASS holds no DMMA instruction")
+    hmma = sass_count("fused_forward", "HMMA")
+    check(hmma > 0, "K2's SASS holds no HMMA instruction (its mxu_bf16 path)")
     emit({"build": {"seconds": time.perf_counter() - t0, "compiled": compiled,
                     "ptxas": resources, "fused_forward_sass_dmma": dmma,
+                    "fused_forward_sass_hmma": hmma,
                     "arch": build.ARCH, "nvcc_flags": list(build.NVCC_FLAGS),
                     "libraries": [os.path.relpath(build.library_path(n), ROOT)
                                   for n in names]}})
+    return resources
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -400,7 +435,7 @@ def decode_phase() -> dict:
         rows.append({
             "B": B, "T": T, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "us": ms * 1e3, "plain_us": plain_ms * 1e3,
-            "busy_us": launch_ms(busy)[0] * 1e3,
+            "busy_us": None if launch_ms(busy)[0] is None else launch_ms(busy)[0] * 1e3,
             "launches_captured_per_call": launch_ms(busy)[1],
             "plain_busy_us": plain_busy["busy_ms_per_call"] * 1e3,
             "plain_kernels_per_call": plain_busy["kernels_per_call"],
@@ -707,6 +742,18 @@ def k2_inputs(B: int, T: int, W: int, rng: np.random.Generator):
     return [torch.from_numpy(a).to(DEVICE) for a in (vf, qf, vm, qm)]
 
 
+def k2_packs() -> dict[int, PackedWeights]:
+    """K2's packed weights of seeded random models at Charades width, T=64
+    and T=100."""
+    packs = {}
+    for T in (64, 100):
+        model = SeqPAN(**{k: v for k, v in CHARADES.items() if k not in ("name", "max_tlen")}
+                       | {"max_vlen": T, "num_chars": 60},
+                       generator=torch.Generator().manual_seed(SEED)).to(DEVICE).eval()
+        packs[T] = pack_weights(model)
+    return packs
+
+
 def fused_forward_phase(W: int) -> dict:
     """K2 against its plain version on the card at the sweep's shapes."""
     rng = np.random.default_rng(SEED + 2)
@@ -714,12 +761,7 @@ def fused_forward_phase(W: int) -> dict:
     # (3,17,5) is ragged in every tile dimension (weights of the T=64 model)
     shapes = ((96, 64, W), (8, 64, W), (5, 64, W), (1, 64, W), (32, 100, MAX_WLEN),
               (3, 17, 5))
-    packs = {}
-    for T in (64, 100):
-        model = SeqPAN(**{k: v for k, v in CHARADES.items() if k not in ("name", "max_tlen")}
-                       | {"max_vlen": T, "num_chars": 60},
-                       generator=torch.Generator().manual_seed(SEED)).to(DEVICE).eval()
-        packs[T] = pack_weights(model)
+    packs = k2_packs()
     kw = dict(attn_layer=CHARADES["attn_layer"], num_heads=CHARADES["num_heads"],
               tau=0.3, use_gumbel=False)
     check(k2._library().fused_forward_max_len() == k2.MAX_LEN
@@ -836,7 +878,7 @@ def sweep_phase(workdir: str, config, store, dataset) -> dict:
     runs = {}
     for backend, tr in trainers.items():
         pkl = os.path.join(workdir, f"{backend}.pkl")
-        k1.span_decode.launches = k2.fused_forward.launches = 0   # main path starts
+        reset_launches()   # main path starts
         t0 = time.perf_counter()
         test_m = tr.test()
         test_s = time.perf_counter() - t0
@@ -911,7 +953,7 @@ def sweep_phase(workdir: str, config, store, dataset) -> dict:
 # the train section of configs/charades/SeqPAN.yaml; 50 epochs cut to 2
 TRAIN = dict(epochs=2, batch_size=16, lr=1e-4, droprate=0.2, clip_norm=1.0,
              weight_decay=0.01)
-TRAIN_QUERIES, RESUME_QUERIES, PROFILE_STEPS, GUMBEL_QUERIES = 1600, 512, 20, 960
+TRAIN_QUERIES, PROFILE_STEPS, GUMBEL_QUERIES = 1600, 20, 960
 
 
 def train_config(config, ckpt_dir: str, **train):
@@ -998,62 +1040,141 @@ def step_against_cpu(widths: dict, batch: dict, word_vectors) -> dict:
             "ious_card_vs_cpu_equal": bool(torch.equal(got["ious"].cpu(), want["ious"]))}
 
 
-def train_run(cfg, dataset, store, table, callback=None):
-    tr = Trainer(cfg, dataset, store, logger=logging.getLogger("chip_smoke.train"),
-                 device_features=table, device=DEVICE)
-    tr.init_state()
-    return tr, tr.train(epoch_callback=callback)
-
-
 class Stop(Exception):
     pass
 
 
-def resume_check(workdir: str, config, dataset, store, table) -> dict:
-    """2 epochs on a subset, uninterrupted and stopped after epoch 0 then
-    resumed in a fresh Trainer, under deterministic algorithms: final
-    params, best R@1@0.7 and best checkpoint must be bit-equal."""
-    sub = dict(dataset, train_set=dataset["train_set"][:RESUME_QUERIES])
-    cfgs = {run: train_config(config, os.path.join(workdir, f"resume_{run}"),
-                              save_state_every=1) for run in ("a", "b")}
-    torch.use_deterministic_algorithms(True)
+# the resume check's synthetic set (tools/make_synthetic_data.py) at Charades
+# width: 512 train queries (32 steps an epoch), 192 test queries
+RESUME_DATA = dict(n_train=512, n_test=192, vdim=CHARADES["vdim"], max_raw_len=120,
+                   min_raw_len=24, seed=SEED % 997)
+
+
+def resume_check(workdir: str) -> dict:
+    """A resume through ``cli.main(["--deterministic", ...])`` in a fresh
+    process (``--resume-worker``), where deterministic mode starts before
+    CUDA does, as for a user: 2 epochs uninterrupted, 2 epochs stopped after
+    epoch 0 and resumed from ``state.pt``; final params, best R@1@0.7 and
+    best checkpoint must be bit-equal.  The worker also times a train step
+    with deterministic algorithms on and off."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from make_synthetic_data import make_dataset
+
+    root = os.path.join(workdir, "resume")
+    make_dataset(root, task="charades", **RESUME_DATA)
+    Config.from_dict({
+        "task": "charades",
+        "paths": {"ckpt_dir": "./ckpt", "cache_dir": "./data_pkl/",
+                  "feature_path": "./data/features/charades_i3d",
+                  "glove_path": "./data/glove/glove.840B.300d.txt",
+                  "train_path": "./data/charades_gt/train.json",
+                  "test_path": "./data/charades_gt/test.json"},
+        "train": dict(TRAIN, sweep_backend="fused", save_state_every=1),
+        "model": dict(CHARADES, span_decode="pallas")}).save(
+            os.path.join(root, "SeqPAN.yaml"))
+    env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--resume-worker",
+                           root], capture_output=True, text=True, env=env, timeout=900)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"resume worker exited {proc.returncode}:\n"
+                                f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    return {**out, "data": RESUME_DATA, "seconds_process": seconds}
+
+
+def resume_worker(root: str) -> None:
+    """The resume check's process: three ``cli.main`` train runs with
+    ``--deterministic`` in ``root``, then 20-step timings with deterministic
+    algorithms on, off, off and on; prints one JSON line."""
+    os.chdir(root)
+    built, stop, resumed_at = [], [False], []
+    real = cli.build_trainer
+
+    def build(c, **kw):
+        tr = real(c, **kw)
+        load_state = tr.load_state
+
+        def loaded(path):
+            load_state(path)
+            resumed_at.append([tr.state.epoch, tr.state.step])
+        tr.load_state = loaded
+        if stop[0]:                      # stop after epoch 0, as a preemption would
+            train = tr.train
+
+            def stopped(epoch_callback=None):
+                def at(epoch, _):
+                    if epoch == 0:
+                        raise Stop
+                return train(epoch_callback=at)
+            tr.train = stopped
+        built.append(tr)
+        return tr
+
+    cli.build_trainer = build
+    args = ["--config", "SeqPAN.yaml", "--mode", "train", "--seed", str(SEED),
+            "--deterministic"]
+    t0 = time.perf_counter()
+    check(cli.main(args + ["--suffix", "a"]) == 0, "resume: run a failed")
+    check(torch.are_deterministic_algorithms_enabled()
+          and os.environ.get("CUBLAS_WORKSPACE_CONFIG") == ":4096:8",
+          "--deterministic did not set deterministic mode")
+    a = built[-1]
+    stop[0] = True
     try:
-        t0 = time.perf_counter()
-        a, _ = train_run(cfgs["a"], sub, store, table)
-
-        def stop(epoch, _):
-            if epoch == 0:
-                raise Stop
-
-        try:
-            train_run(cfgs["b"], sub, store, table, stop)
-            check(False, "the stop after epoch 0 did not happen")
-        except Stop:
-            pass
-        model_dir = os.path.abspath(cfgs["b"].model_dir())
-        c = Trainer(cfgs["b"], sub, store, logger=logging.getLogger("chip_smoke.train"),
-                    device_features=table, device=DEVICE)
-        c.init_state(seed=SEED)                  # other weights: the resume replaces them
-        c.load_state(os.path.join(model_dir, "state.pt"))
-        resumed_at = (c.state.epoch, c.state.step)
-        c.train()
-        seconds = time.perf_counter() - t0
-    finally:
-        torch.use_deterministic_algorithms(False)
+        cli.main(args + ["--suffix", "b"])
+        check(False, "the stop after epoch 0 did not happen")
+    except Stop:
+        pass
+    stop[0] = False
+    state = os.path.join("ckpt", "charades_b", "state.pt")
+    check(cli.main(args + ["--suffix", "b", "--checkpoint", state]) == 0,
+          "resume: run c failed")
+    c = built[-1]
+    seconds = time.perf_counter() - t0
     pa, pc = a.model.state_dict(), c.model.state_dict()
     same = all(torch.equal(pa[k], pc[k]) for k in pa)
-    with np.load(os.path.join(os.path.abspath(cfgs["a"].model_dir()), "best.npz")) as fa, \
-            np.load(os.path.join(model_dir, "best.npz")) as fc:
+    with np.load(os.path.join("ckpt", "charades_a", "best.npz")) as fa, \
+            np.load(os.path.join("ckpt", "charades_b", "best.npz")) as fc:
         same_best = set(fa) == set(fc) and all(np.array_equal(fa[k], fc[k]) for k in fa)
     check(same and same_best and a.state.best_r1i7 == c.state.best_r1i7
           and a.state.step == c.state.step,
           f"resume: params equal {same}, best checkpoint equal {same_best}, best "
           f"{a.state.best_r1i7} vs {c.state.best_r1i7}, step {a.state.step} vs {c.state.step}")
-    return {"queries": RESUME_QUERIES, "epochs": TRAIN["epochs"], "resumed_at": resumed_at,
-            "steps": c.state.step, "best_r1i7": c.state.best_r1i7, "bit_equal": True,
-            "seconds_three_runs": seconds,
-            "deterministic": "torch.use_deterministic_algorithms(True), "
-                             "CUBLAS_WORKSPACE_CONFIG=" + os.environ["CUBLAS_WORKSPACE_CONFIG"]}
+
+    # the cost of deterministic mode: ms a train step (B=16), on/off/off/on
+    order = torch.randperm(len(a.train_set), generator=torch.Generator().manual_seed(SEED))
+    sels = [order[i * 16:(i + 1) * 16].to(DEVICE) for i in range(PROFILE_STEPS + 1)]
+
+    def step_ms() -> float:
+        def one(i):
+            b = steps.gather_batch(a._train_data, sels[i], with_labels=True)
+            steps.train_step(a.model, a.state.opt, b, a.word_vectors, TRAIN["lr"],
+                             steps.make_generator(DEVICE, SEED, i),
+                             drop_rate=TRAIN["droprate"])
+        one(PROFILE_STEPS)                              # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(PROFILE_STEPS):
+            one(i)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / PROFILE_STEPS
+
+    timing = {"deterministic": [], "default": []}
+    for mode in ("deterministic", "default", "default", "deterministic"):
+        torch.use_deterministic_algorithms(mode == "deterministic")
+        timing[mode].append(step_ms())
+    emit({"queries": len(a.train_set), "epochs": TRAIN["epochs"],
+          "resumed_at_epoch_step": resumed_at[0],
+          "steps": c.state.step, "best_r1i7": c.state.best_r1i7, "bit_equal": True,
+          "seconds_three_runs": seconds,
+          "deterministic": "cli.main --deterministic: CUBLAS_WORKSPACE_CONFIG="
+                           + os.environ["CUBLAS_WORKSPACE_CONFIG"]
+                           + " set before CUDA started, deterministic algorithms",
+          "step_ms": timing,
+          "step_ms_note": f"host clock over {PROFILE_STEPS} steps of B=16 ending in a "
+                          "synchronize, in turns on/off/off/on; 'default' keeps "
+                          "CUBLAS_WORKSPACE_CONFIG and turns the algorithms off"})
 
 
 def mc_sweeps(workdir: str, config, dataset, store, table, flat) -> dict:
@@ -1066,7 +1187,7 @@ def mc_sweeps(workdir: str, config, dataset, store, table, flat) -> dict:
                      device_features=table, device=DEVICE)
         tr.load_params(flat)
         pairs, sels = tr._sweep_sels("infer", tr.train_set, cfg.infer_batch_size)
-        k1.span_decode.launches = k2.fused_forward.launches = 0   # main path starts
+        reset_launches()   # main path starts
         t0 = time.perf_counter()
         metrics = tr.infer_trainset(save_path=os.path.join(workdir, f"mc_{backend}.pkl"))
         seconds = time.perf_counter() - t0
@@ -1100,7 +1221,7 @@ def mc_sweeps(workdir: str, config, dataset, store, table, flat) -> dict:
                  device_features=table, device=DEVICE)
     tr.load_params(flat)
     pairs, sels = tr._sweep_sels("infer", tr.train_set, cfg.infer_batch_size)
-    k1.span_decode.launches = k2.fused_forward.launches = 0
+    reset_launches()
     live = steps.fused_infer_sweep(tr.model, tr._train_data, sels, tr.word_vectors,
                                    0.0, cfg.train.seed)
     check(k2.fused_forward.launches == k1.span_decode.launches == len(pairs),
@@ -1154,11 +1275,11 @@ def train_phase(workdir: str, config, store, dataset, table) -> dict:
             epochs.append({"epoch": epoch, "test": test_m, **tr.last_epoch_wall,
                            "span_decode_launches": k1.span_decode.launches,
                            "fused_forward_launches": k2.fused_forward.launches})
-            k1.span_decode.launches = k2.fused_forward.launches = 0
+            reset_launches()
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        k1.span_decode.launches = k2.fused_forward.launches = 0   # main path starts
+        reset_launches()   # main path starts
         t0 = time.perf_counter()
         best = tr.train(epoch_callback=on_epoch)
         train_seconds = time.perf_counter() - t0
@@ -1202,7 +1323,7 @@ def train_phase(workdir: str, config, store, dataset, table) -> dict:
     step_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
     profile = device_profile(one_step, calls=PROFILE_STEPS, top=12, match="span_decode")
 
-    resume = resume_check(workdir, config, dataset, store, table)
+    resume = resume_check(workdir)
     mc = mc_sweeps(workdir, config, dataset, store, table, flat)
     warm = {"features": tr.features, "device_features": tr.export_device_features(),
             "dataset": dataset}
@@ -1224,10 +1345,268 @@ def train_phase(workdir: str, config, store, dataset, table) -> dict:
                   "losses and IoUs; step_ms_host_clock: 20 steps after training, "
                   "ending in a synchronize; profile: torch.profiler over 20 steps; "
                   "mc seconds: host clock around infer_trainset() (pickle included)"}})
-    return {"train": launches, "mc_sweep_fused": mc["fused"]["launches"]}, warm
+    f32 = {"step_ms": [e["train_s"] * 1e3 / n_steps for e in epochs],
+           "max_memory_allocated_bytes": peak, "flat": flat}
+    return {"train": launches, "mc_sweep_fused": mc["fused"]["launches"]}, warm, f32
 
 
 # -- phase 9 ------------------------------------------------------------------
+BF16_MC_BATCHES = 20
+
+
+def rms(a: torch.Tensor) -> float:
+    return a.double().pow(2).mean().sqrt().item()
+
+
+def bf16_stats(got, exact, plain_bf16, k2_f32) -> tuple[dict, list[str]]:
+    """(B), (S) and (R) of K2's bf16 outputs (start, end, match scores)
+    against the plain version in f64 without rounding; returns the
+    statistics and the checks that failed.
+
+    (B) on match scores is max(0.05, 1.5 x the plain bf16 version's own
+    distance from f64): over a batch of 96 x 64 positions the plain bf16
+    version itself is up to 0.13-0.18 from f64 (CPU rehearsal at D=32), so
+    the fixed 0.05 of the 5-sample CPU tests cannot hold here."""
+    stats, failed = {}, []
+    for name, x, ref, pb, f in zip(("start_logits", "end_logits", "match_scores"),
+                                   got, exact, plain_bf16, k2_f32):
+        x = x.double()
+        plain_err = (pb - ref).abs().max().item()
+        band = (max(0.05, 1.5 * plain_err) if name == "match_scores"
+                else 0.05 + 0.03 * ref.abs().max().item())
+        st = {"max_abs_err": (x - ref).abs().max().item(), "band": band,
+              "plain_bf16_max_abs_err": plain_err,
+              "S": rms(x - ref) / rms(pb - ref),
+              "R": rms(x - ref) / max(rms(f.double() - ref), 1e-30),
+              "finite": bool(torch.isfinite(x).all())}
+        stats[name] = st
+        failed += [f"{name} {c}" for c, ok in (
+            ("finite", st["finite"]), ("(B)", st["max_abs_err"] <= band),
+            ("(S)", 0.5 <= st["S"] <= 2.0), ("(R)", st["R"] > 100.0)) if not ok]
+    return stats, failed
+
+
+def k2_bf16_check(W: int, resources: dict) -> dict:
+    """(a) K2 with bf16 products against its plain version on the card."""
+    rng = np.random.default_rng(SEED + 7)
+    packs = k2_packs()
+    kw = dict(attn_layer=CHARADES["attn_layer"], num_heads=CHARADES["num_heads"],
+              tau=0.3, use_gumbel=False)
+    dims = (CHARADES["dim"], CHARADES["num_heads"])
+    rows, failed = [], []
+    for B, T, Wq in ((96, 64, W), (32, 100, MAX_WLEN), (3, 17, 5)):
+        packed = packs[64 if T <= 64 else 100]
+        args = k2_inputs(B, T, Wq, rng)
+        got = k2.fused_forward(packed, *args, **kw, mxu_bf16=True)
+        f32 = k2.fused_forward(packed, *args, **kw)
+        torch.cuda.synchronize()
+        p64 = PackedWeights(packed.buffer.double(), packed.layout, packed.attn_layer)
+        a64 = [a.double() if a.is_floating_point() else a for a in args]
+        exact = forward_math(p64, *a64, **kw)
+        plain_bf16 = forward_math(p64, *a64, **kw, mxu_bf16=True)
+        stats, bad = bf16_stats(got, exact, plain_bf16, f32)
+        failed += [f"{(B, T, Wq)}: {b}" for b in bad]
+        vm = args[2]
+        spans = [torch.stack(k1.span_decode(s, e, vm), 1) for s, e in
+                 (got[:2], [r.float() for r in plain_bf16[:2]], f32[:2])]
+        kernel = lambda: k2.fused_forward(packed, *args, **kw, mxu_bf16=True)  # noqa: E731
+        kernel_f32 = lambda: k2.fused_forward(packed, *args, **kw)  # noqa: E731
+        plain = lambda: forward_math(packed, *args, **kw, mxu_bf16=True)  # noqa: E731
+        ms, queue = device_times_ms(kernel, per_round=20, warmup=3)
+        f32_ms, _ = device_times_ms(kernel_f32, per_round=20, warmup=3)
+        plain_ms, _ = device_times_ms(plain, per_round=1, rounds=10, warmup=3)
+        busy = device_profile(kernel, calls=10, top=1)
+        flops = k2_flops(B, T, Wq)
+        n_bytes = (packed.buffer.numel() * 4 + sum(a.numel() * 4 for a in args)
+                   + B * T * 6 * 4)
+        t_ops, t_bytes = flops / BF16_FLOPS * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+        bound = max(t_ops, t_bytes)
+        rows.append({"B": B, "T": T, "W": Wq, "errors": stats,
+                     "max_abs_err": max(stats["start_logits"]["max_abs_err"],
+                                        stats["end_logits"]["max_abs_err"]),
+                     "spans_equal_plain_bf16": (spans[0] == spans[1]).all(1).float()
+                     .mean().item(),
+                     "spans_equal_k2_f32": (spans[0] == spans[2]).all(1).float().mean().item(),
+                     "ms": ms, "f32_ms": f32_ms, "busy_ms": launch_ms(busy)[0],
+                     "plain_ms": plain_ms, "queue": queue, "flops": flops,
+                     "bytes": n_bytes, "bound_ms": bound,
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                     "bound_share": bound / ms,
+                     "smem_bytes_per_block": k2.smem_bytes(T, Wq, *dims)})
+    emit({"bf16_k2": {
+        "shapes": rows, "ptxas": resources.get("fused_forward"),
+        "reference": "errors against the plain version in f64 without rounding; "
+                     "S: rms(K2 bf16 - f64) / rms(plain bf16 - f64), the plain "
+                     "bf16 version rounding the operands of the JAX kernel's mm/mmt "
+                     "with f64 sums; R: rms(K2 bf16 - f64) / rms(K2 f32 - f64)",
+        "timing": "ms and f32_ms: median of 20 calls by CUDA events, queued behind "
+                  "a device sleep; busy_ms: kernel time per captured launch; "
+                  "plain_ms: the plain version with bf16 rounding, in f32; the "
+                  "bound counts products only, at the dense bf16 tensor-core rate"}})
+    check(not failed, f"K2 bf16 against its plain version: {failed}")
+    return rows[0]
+
+
+def bf16_sweep(workdir: str, config, store, dataset, table) -> dict:
+    """(b) The test sweep and infer_trainset() with fused_mxu_bf16, in turns
+    with the f32 fused sweep (f32, bf16, bf16, f32) on the sweep phase's
+    weights; the bf16 runs are the main path."""
+    trainers = {}
+    for name in ("f32", "bf16"):
+        cfg = copy.deepcopy(config)
+        cfg.train.sweep_backend, cfg.train.fused_mxu_bf16 = "fused", name == "bf16"
+        tr = Trainer(cfg, dataset, store, logger=logging.getLogger("chip_smoke.bf16"),
+                     device_features=table, device=DEVICE)
+        tr.init_state()                             # the sweep phase's weights
+        tr.test()                                   # warm-up
+        trainers[name] = tr
+    n = {split: math.ceil(len(ds) / config.eval_batch_size)
+         for split, ds in (("test", tr.test_set), ("train", tr.train_set))}
+    total = n["test"] + n["train"]
+    runs: dict[str, list] = {"f32": [], "bf16": []}
+    for name in ("f32", "bf16", "bf16", "f32"):
+        tr = trainers[name]
+        reset_launches()                            # main path starts (bf16)
+        t0 = time.perf_counter()
+        test_m = tr.test()
+        test_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        infer_m = tr.infer_trainset(save_path=os.path.join(workdir, f"mxu_{name}.pkl"))
+        infer_s = time.perf_counter() - t0
+        launches = launch_counts()                  # main path ends
+        bf16 = name == "bf16"
+        check(launches == {"span_decode": total, "fused_forward": 0 if bf16 else total,
+                           "fused_forward_bf16": total if bf16 else 0},
+              f"{name} sweep: launches {launches} for {n} batches")
+        runs[name].append({"test": test_m, "infer_trainset": infer_m,
+                           "test_seconds": test_s, "infer_seconds": infer_s,
+                           "launches": launches})
+    spans = {}
+    for name in ("f32", "bf16"):
+        with open(os.path.join(workdir, f"mxu_{name}.pkl"), "rb") as fh:
+            spans[name] = [r["prop_idx"] for r in pickle.load(fh)]
+    same = sum(a == b for a, b in zip(spans["bf16"], spans["f32"]))
+    return {"batches": n, "runs_in_turns": runs,
+            "launches": {k: sum(r["launches"][k] for r in runs["bf16"])
+                         for k in ("span_decode", "fused_forward", "fused_forward_bf16")},
+            "train_spans_equal_f32": f"{same}/{len(spans['bf16'])}"}
+
+
+def bf16_train(workdir: str, config, store, dataset, table, f32: dict) -> dict:
+    """(c) One epoch of Trainer.train() at compute_dtype bfloat16 on the
+    train phase's queries."""
+    sub = dict(dataset, train_set=dataset["train_set"][:TRAIN_QUERIES])
+    cfg = train_config(config, os.path.join(workdir, "ckpt_bf16"), epochs=1)
+    cfg.suffix = "bf16"
+    cfg.model.compute_dtype = "bfloat16"
+    step_losses = []
+    real = steps.train_epoch
+
+    def capture(*a, **kw):
+        losses, ious = real(*a, **kw)
+        step_losses.append(losses)
+        return losses, ious
+
+    here = os.getcwd()
+    os.chdir(workdir)                        # train() writes ./logs/<task>/
+    steps.train_epoch = capture
+    try:
+        tr = Trainer(cfg, sub, store, logger=logging.getLogger("chip_smoke.bf16"),
+                     device_features=table, device=DEVICE)
+        tr.init_state()
+        n_steps = math.ceil(len(tr.train_set) / TRAIN["batch_size"])
+        n_test = math.ceil(len(tr.test_set) / cfg.eval_batch_size)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()                                        # main path starts
+        t0 = time.perf_counter()
+        tr.train()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()                             # main path ends
+        tr.close()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        steps.train_epoch = real
+        os.chdir(here)
+    losses = torch.cat(step_losses).cpu().numpy()
+    k = max(1, len(losses) // 5)                    # the first and last fifth
+    first, last = float(losses[:k].mean()), float(losses[-k:].mean())
+    check(len(losses) == n_steps and np.isfinite(losses).all() and last < first,
+          f"bf16 train: {len(losses)} losses, first {k} {first}, last {k} {last}")
+    check(launches == {"span_decode": n_steps + n_test, "fused_forward": n_test,
+                       "fused_forward_bf16": 0},
+          f"bf16 train: launches {launches} for {n_steps} steps, {n_test} test batches")
+    return {"steps": n_steps, "test_batches": n_test, "launches": launches,
+            "loss_first_fifth": first, "loss_last_fifth": last,
+            "train_s": tr.last_epoch_wall["train_s"], "seconds": seconds,
+            "step_ms": tr.last_epoch_wall["train_s"] * 1e3 / n_steps,
+            "f32_step_ms": f32["step_ms"], "max_memory_allocated_bytes": peak,
+            "f32_max_memory_allocated_bytes": f32["max_memory_allocated_bytes"]}
+
+
+def bf16_mc(workdir: str, config, store, dataset, table, flat) -> dict:
+    """(d) infer_trainset() at mc_droprate 0.5 with mc_dtype bfloat16 over
+    BF16_MC_BATCHES batches, against an f32 trainer's on the same weights."""
+    sub = dict(dataset, train_set=dataset["train_set"][:BF16_MC_BATCHES * 96])
+    rows, out = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = train_config(config, "", mc_droprate=0.5, mc_dtype=dtype)
+        tr = Trainer(cfg, sub, store, logger=logging.getLogger("chip_smoke.bf16"),
+                     device_features=table, device=DEVICE)
+        tr.load_params(flat)
+        check((tr.mc_model is None) == (dtype == "float32"), "mc_model")
+        path = os.path.join(workdir, f"mc_{dtype}.pkl")
+        reset_launches()
+        t0 = time.perf_counter()
+        tr.infer_trainset(save_path=path)
+        out[dtype] = {"seconds": time.perf_counter() - t0, "launches": launch_counts()}
+        check(out[dtype]["launches"] == {"span_decode": BF16_MC_BATCHES,
+                                         "fused_forward": BF16_MC_BATCHES,
+                                         "fused_forward_bf16": 0},
+              f"bf16 mc: launches {out[dtype]['launches']}")
+        with open(path, "rb") as fh:
+            rows[dtype] = pickle.load(fh)
+    clean = all(a["prop_idx"] == b["prop_idx"]
+                and all(np.array_equal(x, y) for x, y in zip(a["prop_logits"], b["prop_logits"]))
+                and np.array_equal(a["m_score"], b["m_score"])
+                for a, b in zip(rows["float32"], rows["bfloat16"]))
+    check(clean, "bf16 mc: the clean outputs differ from the f32 trainer's")
+    b16 = rows["bfloat16"]
+    finite = all(x.dtype == np.float32 and np.isfinite(x).all()
+                 for r in b16 for k in ("prop_logits1", "prop_logits2") for x in r[k])
+    live = float(np.mean([not np.array_equal(r["prop_logits1"][0], r["prop_logits2"][0])
+                          for r in b16]))
+    check(finite and live > 0.9, f"bf16 mc: MC logits finite {finite}, live share {live}")
+    return {"queries": len(b16), "batches": BF16_MC_BATCHES, "clean_bit_equal": True,
+            "mc_logits_finite": True, "passes_differ_share": live,
+            "seconds": {k: v["seconds"] for k, v in out.items()},
+            "launches": {k: out["float32"]["launches"][k] + out["bfloat16"]["launches"][k]
+                         for k in ("span_decode", "fused_forward")}}
+
+
+def bf16_phase(workdir: str, config, store, dataset, table, f32_train: dict,
+               W: int, resources: dict) -> tuple[dict, int, dict]:
+    """Phase 9; returns K2 bf16's main-shape row and launches, and the K1
+    and K2 f32 launches of the bf16 options' runs."""
+    k2_row = k2_bf16_check(W, resources)
+    sweep = bf16_sweep(workdir, config, store, dataset, table)
+    train = bf16_train(workdir, config, store, dataset, table, f32_train)
+    mc = bf16_mc(workdir, config, store, dataset, table, f32_train["flat"])
+    emit({"bf16_charades": {
+        "card": CARD[0], "sweep_fused_mxu_bf16": sweep, "train_compute_bf16": train,
+        "mc_dtype_bf16": mc,
+        "reduced": {"train": f"12,408 queries -> {TRAIN_QUERIES}, 50 epochs -> 1",
+                    "mc": f"12,408 queries -> {BF16_MC_BATCHES * 96}"},
+        "timing": "seconds: host clock around test() / infer_trainset() / train(), "
+                  "each ending in a host fetch (infer_trainset includes writing the "
+                  "pickle); step_ms: the epoch's train seconds over its steps; the "
+                  "sweeps run in turns f32, bf16, bf16, f32"}})
+    return k2_row, sweep["launches"]["fused_forward_bf16"], {
+        k: sweep["launches"][k] + train["launches"][k] + mc["launches"][k]
+        for k in ("span_decode", "fused_forward")}
+
+
+# -- phase 10 -----------------------------------------------------------------
 # tools/synthetic_quality_comparison.py:260-261 and its schedule: 15 epochs,
 # re0 + 2 rounds, mc_droprate 0, train seed 12345
 QUALITY_DATA = dict(n_train=600, n_test=300, vdim=128, max_raw_len=64, seed=31)
@@ -1240,11 +1619,6 @@ QUALITY_OLD_MIOU = 0.5565
 # (ROADMAP.md, "Last evidence PRs"; results/synthetic_quality_comparison.json),
 # widened by 0.006, the widest across-seed spread at any round
 QUALITY_BANDS = {1: (0.568, 0.590), 2: (0.588, 0.606)}
-
-
-def launch_counts() -> dict:
-    return {"span_decode": k1.span_decode.launches,
-            "fused_forward": k2.fused_forward.launches}
 
 
 def loop_tree(workdir: str, config) -> str:
@@ -1350,7 +1724,7 @@ def full_width_round(workdir: str, config, data: str, warm: dict) -> dict:
     here = os.getcwd()
     os.chdir(root)                          # the loop writes ./logs/<task>/
     try:
-        k1.span_decode.launches = k2.fused_forward.launches = 0   # main path starts
+        reset_launches()   # main path starts
         t0 = time.perf_counter()
         history = orchestrate.run_rounds("charades", rounds=1, start_round=1,
                                          base_config_path=base_path, data_root=data,
@@ -1367,7 +1741,8 @@ def full_width_round(workdir: str, config, data: str, warm: dict) -> dict:
     n_steps = math.ceil(len(tr.train_set) / cfg.train.batch_size)
     n_test = math.ceil(len(tr.test_set) / cfg.eval_batch_size)
     n_infer = math.ceil(len(tr.train_set) / cfg.infer_batch_size)
-    want = {"span_decode": n_steps + n_test + n_infer, "fused_forward": n_test + n_infer}
+    want = {"span_decode": n_steps + n_test + n_infer, "fused_forward": n_test + n_infer,
+            "fused_forward_bf16": 0}
     check(launches == want, f"round at full width: launches {launches}, want {want} "
                             f"({n_steps} steps, {n_test} test, {n_infer} infer batches)")
     check(os.path.exists(os.path.join(results, "charades", "re1.pkl"))
@@ -1409,7 +1784,7 @@ def quality_loop(workdir: str) -> dict:
     here = os.getcwd()
     os.chdir(root)
     try:
-        k1.span_decode.launches = k2.fused_forward.launches = 0   # main path starts
+        reset_launches()   # main path starts
         t0 = time.perf_counter()
         check(cli.main(["--config", re0_path, "--mode", "train", "--suffix", "re0"]) == 0
               and cli.main(["--config", re0_path, "--mode", "infer_trainset",
@@ -1430,7 +1805,8 @@ def quality_loop(workdir: str) -> dict:
     test_batches, infer_batches = math.ceil(n_test / 96), math.ceil(n_train / 96)
     want = {"span_decode": runs * (epochs * (math.ceil(n_train / 16) + test_batches)
                                    + infer_batches),
-            "fused_forward": runs * (epochs * test_batches + infer_batches)}
+            "fused_forward": runs * (epochs * test_batches + infer_batches),
+            "fused_forward_bf16": 0}
     check(launches == want, f"quality loop: launches {launches}, want {want}")
     check([h["round"] for h in summary] == [1, 2], f"rounds {summary}")
     old = summary[0]["label_stats"]["old_miou"]
@@ -1470,7 +1846,10 @@ def loop_phase(workdir: str, config, warm: dict) -> dict:
             for k in ("span_decode", "fused_forward")}
 
 
-def main() -> None:
+def main(argv: list[str]) -> None:
+    if argv[:1] == ["--resume-worker"]:
+        resume_worker(argv[1])
+        return
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: FAILED: torch.cuda.is_available() is false")
     seconds = {}
@@ -1483,7 +1862,7 @@ def main() -> None:
             seconds[name] = time.perf_counter() - t0
 
     timed("environment", environment)
-    timed("build", build_kernels)
+    resources = timed("build", build_kernels)
     k1_main = timed("span_decode", decode_phase)
     build_root = os.path.join(ROOT, "build")
     os.makedirs(build_root, exist_ok=True)
@@ -1497,8 +1876,11 @@ def main() -> None:
         k2_main = timed("fused_forward", fused_forward_phase, dataset["max_wlen"])
         sweep_launches, table = timed("sweep_charades", sweep_phase, workdir, config,
                                       store, dataset)
-        train_launches, warm = timed("train_charades", train_phase, workdir, config,
-                                     store, dataset, table)
+        train_launches, warm, f32_train = timed("train_charades", train_phase, workdir,
+                                                config, store, dataset, table)
+        bf16_main, bf16_launches, bf16_options = timed(
+            "bf16_charades", bf16_phase, workdir, config, store, dataset, table,
+            f32_train, dataset["max_wlen"], resources)
         loop_launches = timed("loop_charades", loop_phase, workdir, config, warm)
     emit({"phase_seconds": seconds, "card": CARD[0]})
     emit({"kernels": [{
@@ -1508,12 +1890,13 @@ def main() -> None:
         "launches": (serve_launches + sweep_launches["span_decode"]
                      + train_launches["train"]["span_decode"]
                      + train_launches["mc_sweep_fused"]["span_decode"]
-                     + loop_launches["span_decode"]),
+                     + bf16_options["span_decode"] + loop_launches["span_decode"]),
         "launches_by_path": {"serve": serve_launches,
                              "sweep_fused": sweep_launches["span_decode"],
                              "train": train_launches["train"]["span_decode"],
                              "mc_sweep_fused":
                                  train_launches["mc_sweep_fused"]["span_decode"],
+                             "bf16_options": bf16_options["span_decode"],
                              "loop": loop_launches["span_decode"]},
         "max_abs_err": k1_main["max_abs_err"],
         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
@@ -1525,20 +1908,33 @@ def main() -> None:
         "launches": (sweep_launches["fused_forward"]
                      + train_launches["train"]["fused_forward"]
                      + train_launches["mc_sweep_fused"]["fused_forward"]
-                     + loop_launches["fused_forward"]),
+                     + bf16_options["fused_forward"] + loop_launches["fused_forward"]),
         "launches_by_path": {"sweep_fused": sweep_launches["fused_forward"],
                              "train": train_launches["train"]["fused_forward"],
                              "mc_sweep_fused":
                                  train_launches["mc_sweep_fused"]["fused_forward"],
+                             "bf16_options": bf16_options["fused_forward"],
                              "loop": loop_launches["fused_forward"]},
         "max_abs_err": k2_main["max_abs_err"],
         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
-        "library_ms": None, "shape": [k2_main["B"], k2_main["T"], k2_main["W"]]}]})
+        "library_ms": None, "shape": [k2_main["B"], k2_main["T"], k2_main["W"]]}, {
+        "name": "fused_forward_bf16", "route": "cuda",
+        "source": "hual_tpu_torch/csrc/fused_forward.cu",
+        "replaces": "hual_tpu/ops/pallas/fused_forward.py:438",
+        "branch": "mxu_bf16 (_forward_math, hual_tpu/ops/pallas/fused_forward.py:189-224)",
+        "launches": bf16_launches,
+        "launches_by_path": {"sweep_fused_mxu_bf16": bf16_launches},
+        "max_abs_err": bf16_main["max_abs_err"],
+        "error_stats": bf16_main["errors"],
+        "ms": bf16_main["ms"], "plain_ms": bf16_main["plain_ms"],
+        "bound_ms": bf16_main["bound_ms"], "bound_by": bf16_main["bound_by"],
+        "library_ms": None,
+        "shape": [bf16_main["B"], bf16_main["T"], bf16_main["W"]]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -9,7 +9,9 @@ It runs on the CUDA card and raises without one.  ``--checkpoint`` is, in
 (``<model_dir>/state.pt``) and training continues at its epoch; in the
 other modes, a best checkpoint (``best.npz``; ``<model_dir>/best.npz`` when
 omitted).  The reference's ``--gpu_idx`` is accepted and ignored;
-``--debug`` limits training to 1 epoch.
+``--debug`` limits training to 1 epoch; ``--deterministic`` turns on
+deterministic mode (``runtime/debug.enable_deterministic``), under which a
+run resumed from ``--checkpoint`` replays the uninterrupted one bit for bit.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import numpy as np
 from hual_tpu_torch.config import Config
 from hual_tpu_torch.data.datasets import gen_or_load_dataset
 from hual_tpu_torch.data.features import FeatureStore
+from hual_tpu_torch.runtime.debug import enable_deterministic
 from hual_tpu_torch.runtime.logger import get_logger
 from hual_tpu_torch.runtime.trainer import Trainer
 
@@ -40,6 +43,9 @@ def parse_args(argv=None):
     parser.add_argument("--gpu_idx", type=str, default="0",
                         help="accepted for reference-CLI compatibility; unused")
     parser.add_argument("--ckpt_dir", type=str, default="")
+    parser.add_argument("--deterministic", action="store_true",
+                        help="deterministic algorithms, so a resumed run "
+                             "replays the uninterrupted one bit for bit")
     return parser.parse_args(argv)
 
 
@@ -69,6 +75,8 @@ def build_trainer(config: Config, features: FeatureStore | None = None,
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if args.deterministic:
+        enable_deterministic()
     np.random.seed(args.seed)
     config = Config.load(args.config)
     config.suffix = args.suffix or config.suffix

@@ -16,9 +16,17 @@ in either package.  What the backend switches mean in this port:
   ``train.fused_block`` is the TPU kernel's block of samples and is not
   read: K2 takes one sample per thread block and any B.
 * ``model.matmul_precision``: every value runs full fp32 on the card, with
-  TF32 off for cuBLAS and cuDNN alike (:func:`apply_matmul_precision`).
-* ``model.compute_dtype``: only ``"float32"``; bf16 activations come with
-  a later slice.
+  TF32 off for cuBLAS and cuDNN alike, and bf16 products summed in f32
+  (:func:`apply_matmul_precision`).
+* ``model.compute_dtype``: the activation dtype of the eager model,
+  ``"float32"`` or ``"bfloat16"``, threaded as the JAX package threads it
+  (``models/``): parameters stay f32 and are cast at each use, products sum
+  in f32, LayerNorm statistics, softmaxes, losses and logits are f32.  The
+  fused sweeps' input front stays f32 whatever it says; K2's products take
+  bf16 operands under ``train.fused_mxu_bf16`` only.
+* ``train.mc_dtype``: the activation dtype of the stochastic MC passes (a
+  view of the model at that dtype, sharing its parameters); the clean pass
+  runs at ``model.compute_dtype``.
 * ``train.rng_impl`` and ``train.infer_rng_impl`` (the TPU's random-bit
   generators) are accepted and not read: the port's train and MC streams
   are ``torch.Generator``s seeded per step and per batch
@@ -65,14 +73,18 @@ def _check_choice(value: Any, field_name: str, choices: tuple) -> Any:
 
 
 def apply_matmul_precision(name: str) -> None:
-    """Pin full fp32 for matmuls and convolutions on the card.
+    """Pin full fp32 for matmuls and convolutions on the card, and f32 sums
+    for bf16 products.
 
     cuDNN runs fp32 convolutions in TF32 unless told otherwise, which would
-    cut the depthwise conv and the char CNN to ~3 decimal digits.
+    cut the depthwise conv and the char CNN to ~3 decimal digits.  cuBLAS
+    may reduce bf16 products in bf16 unless told otherwise; the JAX package
+    sums them in f32 (``preferred_element_type=f32``).
     """
     torch.set_float32_matmul_precision(TORCH_MATMUL_PRECISION[name])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -148,11 +160,6 @@ class ModelConfig:
     def __post_init__(self):
         self.compute_dtype = _canon_dtype(self.compute_dtype,
                                           "model.compute_dtype")
-        if self.compute_dtype != "float32":
-            raise ValueError(
-                f"model.compute_dtype {self.compute_dtype!r} is not ported "
-                "yet: bf16 activations come with a later slice of the port "
-                "(ROADMAP.md queue 1); use float32")
         self.feature_dtype = _canon_dtype(self.feature_dtype,
                                           "model.feature_dtype",
                                           storage=True)

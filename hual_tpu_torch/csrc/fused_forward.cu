@@ -21,24 +21,44 @@
 //
 // Bound on the H100: operations.  About 161 MFLOP a sample at Charades
 // width (T=64, W=13, D=128, 8 heads, 2 layers), 15.5 GFLOP at B=96, i.e.
-// 0.23 ms at 67 TFLOP/s (the f64 peak of the tensor cores); the bytes
-// (3.9 MB of packed weights, 4.0 MB of inputs and outputs at B=96) take
-// ~2.4 us at 3.35 TB/s.
+// 0.23 ms at 67 TFLOP/s (the f64 peak of the tensor cores) on the f64
+// path, 0.0156 ms at 989 TFLOP/s (the dense bf16 peak) on the bf16 path;
+// the bytes (3.9 MB of packed weights, 4.0 MB of inputs and outputs at
+// B=96) take ~2.4 us at 3.35 TB/s.
 //
 // Design.  One block of 8 warps per sample walks every stage, with
 // __syncthreads() between them.
-// - Products on the FP64 tensor cores.  Every product at least 8 outputs
-//   wide (the dense layers, the conv blocks' pointwise layers, each head's
-//   q.k^T and p.v, the CQ trilinear and its three products, cq_cat, the
-//   predictor's hidden layers) is mma.sync m16n8k4 in f64 (DMMA), inline
-//   PTX below.  The f32 operands convert exactly to f64, products and sums
-//   run in f64 and each output is rounded to f32 once, in the epilogue:
-//   the match scores' parity bound (atol 1e-5, at the edge of an f32
-//   forward) needs f64 sums, and DMMA gives them at twice the f64 rate of
-//   the CUDA cores.  TF32 keeps too few bits, and wgmma has no f64 form.
-//   Fragments (CUTLASS's
-//   SM90_16x8x4_F64F64F64F64_TN): lane l, g = l/4, t = l%4, holds A[g][t],
-//   A[g+8][t], B[t][g] and C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1].
+// - Two product paths, chosen per launch (the JAX kernel's mxu_bf16): a
+//   template flag kBf16 of the kernel, threaded through the stages to the
+//   product routines (gemm, gemm_smem, narrow_dense); everything else is
+//   shared source, and the f64 instantiation has no branch of the other
+//   path (a runtime switch cost it 3%, PERF.md).  Every product at
+//   least 8 outputs wide (the dense layers, the conv blocks' pointwise
+//   layers, each head's q.k^T and p.v, the CQ trilinear and its three
+//   products, cq_cat, the predictor's hidden layers) runs on the tensor
+//   cores, inline PTX below:
+//   * f64 (the default): mma.sync m16n8k4 in f64 (DMMA).  The f32 operands
+//     convert exactly to f64, products and sums run in f64 and each output
+//     is rounded to f32 once, in the epilogue: the match scores' parity
+//     bound (atol 1e-5, at the edge of an f32 forward) needs f64 sums, and
+//     DMMA gives them at twice the f64 rate of the CUDA cores.  TF32 keeps
+//     too few bits, and wgmma has no f64 form.  Fragments (CUTLASS's
+//     SM90_16x8x4_F64F64F64F64_TN): lane l, g = l/4, t = l%4, holds
+//     A[g][t], A[g+8][t], B[t][g] and C[g][2t], C[g][2t+1], C[g+8][2t],
+//     C[g+8][2t+1].
+//   * bf16 (mxu_bf16): mma.sync m16n8k16 with bf16 operands and f32 sums
+//     (HMMA): each f32 operand is rounded to nearest even bf16 as its
+//     fragment is loaded (cvt.rn.bf16x2), k steps by 16, and the f32
+//     accumulators go through the same epilogues.  Fragments (CUTLASS's
+//     SM80_16x8x16_F32BF16BF16F32_TN): A[g][2t..2t+1], A[g+8][2t..2t+1],
+//     A[g][2t+8..2t+9], A[g+8][2t+8..2t+9]; B[2t..2t+1][g],
+//     B[2t+8..2t+9][g]; C as above.  The products that round follow the
+//     JAX kernel's mm/mmt: also the matching head and the soft label
+//     embedding (CUDA cores, operands rounded); the pooling, the tile, the
+//     row dots and the final (D,1) denses are elementwise sums or layout
+//     moves there and stay f32.  The attention scale multiplies the f32
+//     sum, after the product, as in JAX.  Zero fill covers ragged k (hd=8,
+//     Tk=13).
 // - Each warp owns a 32x32 tile of outputs (2x4 fragments, 32 f64
 //   accumulators); the 8 warps cover 64x128, 128x64 or 256x32 outputs a
 //   pass, by the product's width, and skip fragments wholly past M or N.
@@ -87,8 +107,9 @@
 // dual attention, CQ attention, feature encoder, LayerNorm, softmax) and
 // every product is a separate function (__noinline__), and the kernel's
 // pointers into the workspace are derived from the Ctx at each use, so no
-// function holds more across a call than the ABI keeps: ptxas reports 240
-// registers, 600 bytes of stack and no spills (sm_90a).
+// function holds more across a call than the ABI keeps: ptxas reports 238
+// registers (f64 path) and 224 (bf16 path), 600 bytes of stack and no spills
+// (sm_90a, CUDA 12.8).
 // Resources: 256 threads; dynamic shared memory (fused_forward_smem_bytes)
 // of the stages or q/k/v, a head group's scores and the masks: 174 KB at
 // T=64, 213 KB at T=100, opted in above 48 KB with cudaFuncSetAttribute.
@@ -102,6 +123,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -182,6 +205,28 @@ __device__ __forceinline__ void dmma_16x8x4(double (&d)[4], double a0,
       "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
       : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
       : "d"(a0), "d"(a1), "d"(b0));
+}
+
+// d += a . b for one m16n8k16 fragment: bf16 operands, f32 sums.
+__device__ __forceinline__ void hmma_16x8x16(float (&d)[4], const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// lo and hi rounded to nearest even bf16 and packed, lo in the low half
+// (the element of the lower k).
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+// x rounded to nearest even bf16, as an f32.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __uint_as_float(bf16x2(x, 0.0f) << 16);
 }
 
 // Copies N (4 or 16) bytes from device to shared memory, or writes
@@ -364,13 +409,14 @@ __device__ __forceinline__ void stage_tile(float* dst, int lds, const float* src
 // the same M and N).  A is row-major (M x K) in device memory; B is
 // row-major (K x N) in device memory, or with kBNT stored as N x K (B[k, n]
 // at b.p[n * ld + k]).  Both are staged through shared memory in k-slabs
-// of f32; each fragment is converted to f64 in the k-loop.  Products and
-// sums in f64 on the tensor cores.  Ends with the block synchronised after
-// its last read of shared memory.
-template <bool kBNT, class Epi>
+// of f32; each fragment is converted in the k-loop: to f64, products and
+// sums in f64 (DMMA), or with kBf16 to bf16, sums in f32 (HMMA).  Ends
+// with the block synchronised after its last read of shared memory.
+template <bool kBNT, bool kBf16, class Epi>
 __device__ __noinline__ void gemm(int M, int N, int K, Mat a, Mat b,
                                   const float* bias, const float* res,
                                   const Ctx& x, Epi epi_arg) {
+  using Acc = std::conditional_t<kBf16, float, double>;
   // locals, not reloads from x after each cp.async wait (a memory clobber)
   const Epi epi = epi_arg;
   float* const stage = x.stage;
@@ -404,13 +450,13 @@ __device__ __noinline__ void gemm(int M, int N, int K, Mat a, Mat b,
       // live fragments of the warp's tile: 16-row and 8-column ones
       const int mi_n = min(2, max(0, (M - m0 - wm + 15) / 16));
       const int nj_n = min(4, max(0, (N - n0 - wn + 7) / 8));
-      double acc[2][4][4];
+      Acc acc[2][4][4];
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.0;
+          for (int v = 0; v < 4; ++v) acc[i][j][v] = 0;
       load(0);
       for (int s = 0; s < slabs; ++s) {
         if (s + 1 < slabs) {
@@ -422,7 +468,44 @@ __device__ __noinline__ void gemm(int M, int N, int K, Mat a, Mat b,
         __syncthreads();
         const float* As = stage + (s & 1) * stage_floats;
         const float* Bs = As + a_floats;
-        if (mi_n > 0 && nj_n > 0) {
+        if (mi_n == 0 || nj_n == 0) {
+          // no live fragment in this warp's tile
+        } else if constexpr (kBf16) {
+          // k16 steps over the slab; its zero fill pads a ragged K
+          const int steps = (min(kSlab, K - s * kSlab) + 15) >> 4;
+          for (int kk = 0; kk < steps; ++kk) {
+            const int k = kk * 16 + 2 * t;
+            uint32_t av[2][4], bv[4][2];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const float* r0 = As + (wm + i * 16 + g) * kSlabLd + k;
+              const float* r8 = r0 + 8 * kSlabLd;
+              av[i][0] = bf16x2(r0[0], r0[1]);
+              av[i][1] = bf16x2(r8[0], r8[1]);
+              av[i][2] = bf16x2(r0[8], r0[9]);
+              av[i][3] = bf16x2(r8[8], r8[9]);
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int c = wn + j * 8 + g;
+              if (kBNT) {
+                const float* bp = Bs + c * kSlabLd + k;
+                bv[j][0] = bf16x2(bp[0], bp[1]);
+                bv[j][1] = bf16x2(bp[8], bp[9]);
+              } else {
+                const float* bp = Bs + k * bld + c;
+                bv[j][0] = bf16x2(bp[0], bp[bld]);
+                bv[j][1] = bf16x2(bp[8 * bld], bp[9 * bld]);
+              }
+            }
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                if (i < mi_n && j < nj_n)  // warp-uniform
+                  hmma_16x8x16(acc[i][j], av[i], bv[j][0], bv[j][1]);
+          }
+        } else {
           const int steps = (min(kSlab, K - s * kSlab) + 3) >> 2;
 #pragma unroll 2
           for (int kk = 0; kk < steps; ++kk) {
@@ -498,24 +581,27 @@ __device__ __noinline__ void gemm(int M, int N, int K, Mat a, Mat b,
 // A dense layer: epi(m, n, x[m, :] @ d.w[:, n] + d.b[n], res[m, n] or 0);
 // x is (M, K) row-major with rows lda floats apart, d.w (K, N), d.b (N,)
 // or null, res (M, N) or null.
-template <class Epi>
+template <bool kBf16, class Epi>
 __device__ void dense(const float* in, int lda, int M, int K, int N, Dense d,
                       const Ctx& x, Epi epi, const float* res = nullptr) {
-  gemm<false>(M, N, K, Mat{in, lda}, Mat{d.w, N}, d.b, res, x, epi);
+  gemm<false, kBf16>(M, N, K, Mat{in, lda}, Mat{d.w, N}, d.b, res, x, epi);
 }
 
 // The same for a narrow N (the matching head, the (D,1) denses): one
-// thread per output on the CUDA cores, f64 sums in order over k.
-template <class Epi>
+// thread per output on the CUDA cores, f64 sums in order over k; with
+// kRound both operands are rounded to bf16 first.
+template <bool kRound, class Epi>
 __device__ __noinline__ void narrow_dense(const float* in, int M, int K, int N,
                              const float* w, Epi epi) {
   for (int e = threadIdx.x; e < M * N; e += kThreads) {
     const int m = e / N, n = e % N;
     const float* xr = in + static_cast<long>(m) * K;
     double acc = 0.0;
-    for (int k = 0; k < K; ++k)
-      acc = fma(static_cast<double>(xr[k]), static_cast<double>(w[k * N + n]),
-                acc);
+    for (int k = 0; k < K; ++k) {
+      const float a = kRound ? round_bf16(xr[k]) : xr[k];
+      const float b = kRound ? round_bf16(w[k * N + n]) : w[k * N + n];
+      acc = fma(static_cast<double>(a), static_cast<double>(b), acc);
+    }
     epi(m, n, static_cast<float>(acc));
   }
 }
@@ -586,6 +672,7 @@ __device__ __noinline__ void row_dots(const float* x, int L, int D,
 
 // x (L x D) in place: kConvLayers x {LN -> depthwise k=7 SAME, zero padding
 // at both ends of L, mask ignored -> pointwise + bias -> relu -> + residual}.
+template <bool kBf16>
 __device__ __noinline__ void conv_block(float* xs, int L, const Ctx& x, const ConvBlockW& w,
                            float* h, float* acc) {
   const int D = x.D;
@@ -610,7 +697,7 @@ __device__ __noinline__ void conv_block(float* xs, int L, const Ctx& x, const Co
       st4(acc + t * D + c, a);
     }
     __syncthreads();
-    dense(acc, D, L, D, D, w.pw[i], x, [=](int m, int n, float v, float r) {
+    dense<kBf16>(acc, D, L, D, D, w.pw[i], x, [=](int m, int n, float v, float r) {
       xs[m * D + n] = fmaxf(v, 0.0f) + r;
     }, xs);
     __syncthreads();
@@ -640,12 +727,14 @@ __device__ void copy_rows(float* dst, int ldd, const float* src, int rows,
 // N and K): A_bi[m, k] = a[bi * a_bs + m * lda + k]; B_bi[k, n] =
 // b[bi * b_bs + k * ldb + n], or with kBNT b[bi * b_bs + n * ldb + k].  The
 // warps take (bi, 32x32 tile) jobs in turn, with no barrier: nothing is
-// staged.  Products and sums in f64 on the tensor cores.
-template <bool kBNT, class Epi>
+// staged.  Products and sums in f64 on the tensor cores, or with kBf16 on
+// bf16 operands with f32 sums.
+template <bool kBNT, bool kBf16, class Epi>
 __device__ __noinline__ void gemm_smem(int nb, int M, int N, int K,
                                        const float* a, int a_bs, int lda,
                                        const float* b, int b_bs, int ldb,
                                        Epi epi_arg) {
+  using Acc = std::conditional_t<kBf16, float, double>;
   const Epi epi = epi_arg;  // a local copy: no reloads after stores
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int g = lane >> 2, t = lane & 3;
@@ -657,35 +746,69 @@ __device__ __noinline__ void gemm_smem(int nb, int M, int N, int K,
     const float* Bm = b + bi * b_bs;
     const int mi_n = min(2, (M - m0 + 15) / 16);  // live 16-row fragments
     const int nj_n = min(4, (N - n0 + 7) / 8);    // live 8-column fragments
-    double acc[2][4][4];
+    Acc acc[2][4][4];
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.0;
+        for (int v = 0; v < 4; ++v) acc[i][j][v] = 0;
+    if constexpr (kBf16) {
+      // k16 steps, zeros past M, N and K
+      auto at = [&](int m, int k) {
+        return k < K && m < M ? A[m * lda + k] : 0.0f;
+      };
+      auto bt = [&](int k, int n) {
+        return k < K && n < N ? (kBNT ? Bm[n * ldb + k] : Bm[k * ldb + n]) : 0.0f;
+      };
+      for (int k0 = 0; k0 < K; k0 += 16) {
+        const int k = k0 + 2 * t;
+        uint32_t av[2][4], bv[4][2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int m = m0 + i * 16 + g;
+          av[i][0] = bf16x2(at(m, k), at(m, k + 1));
+          av[i][1] = bf16x2(at(m + 8, k), at(m + 8, k + 1));
+          av[i][2] = bf16x2(at(m, k + 8), at(m, k + 9));
+          av[i][3] = bf16x2(at(m + 8, k + 8), at(m + 8, k + 9));
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = n0 + j * 8 + g;
+          bv[j][0] = bf16x2(bt(k, n), bt(k + 1, n));
+          bv[j][1] = bf16x2(bt(k + 8, n), bt(k + 9, n));
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (i < mi_n && j < nj_n)  // warp-uniform
+              hmma_16x8x16(acc[i][j], av[i], bv[j][0], bv[j][1]);
+      }
+    } else {
 #pragma unroll 2
-    for (int k0 = 0; k0 < K; k0 += 4) {
-      const int k = k0 + t;
-      const bool kin = k < K;
-      double av[2][2], bv[4];
+      for (int k0 = 0; k0 < K; k0 += 4) {
+        const int k = k0 + t;
+        const bool kin = k < K;
+        double av[2][2], bv[4];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int m = m0 + i * 16 + g;
-        av[i][0] = kin && m < M ? A[m * lda + k] : 0.0f;
-        av[i][1] = kin && m + 8 < M ? A[(m + 8) * lda + k] : 0.0f;
+        for (int i = 0; i < 2; ++i) {
+          const int m = m0 + i * 16 + g;
+          av[i][0] = kin && m < M ? A[m * lda + k] : 0.0f;
+          av[i][1] = kin && m + 8 < M ? A[(m + 8) * lda + k] : 0.0f;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = n0 + j * 8 + g;
+          bv[j] = kin && n < N ? (kBNT ? Bm[n * ldb + k] : Bm[k * ldb + n]) : 0.0f;
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (i < mi_n && j < nj_n)  // warp-uniform
+              dmma_16x8x4(acc[i][j], av[i][0], av[i][1], bv[j]);
       }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + j * 8 + g;
-        bv[j] = kin && n < N ? (kBNT ? Bm[n * ldb + k] : Bm[k * ldb + n]) : 0.0f;
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (i < mi_n && j < nj_n)  // warp-uniform
-            dmma_16x8x4(acc[i][j], av[i][0], av[i][1], bv[j]);
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -711,6 +834,7 @@ __device__ __noinline__ void gemm_smem(int nb, int M, int N, int K,
 // time: their scores, the masked softmax over the real Tk, and p.v, all in
 // shared memory.  An all-padding `from` row gets -1e30 on every score: the
 // finite part is absorbed and the row attends uniformly over the real Tk.
+template <bool kBf16>
 __device__ __noinline__ void attention(const float* q, const float* k,
                                        const float* v, const float* fm,
                                        const float* tm, int Tq, int Tk,
@@ -729,18 +853,19 @@ __device__ __noinline__ void attention(const float* q, const float* k,
   cp_async_wait<0>();
   __syncthreads();
   for (int h0 = 0; h0 < x.H; h0 += G) {
-    gemm_smem<true>(G, Tq, Tk, hd, Qs + h0 * hd, hd, ldq, Ks + h0 * hd, hd,
-                    ldq, [=](int g, int i, int j, float acc) {
-                      S[g * s_bs + i * lds + j] =
-                          acc * scale + (1.0f - fm[i] * tm[j]) * kMask;
-                    });
+    // the scale multiplies the f32 sum, after the product, as in JAX
+    gemm_smem<true, kBf16>(G, Tq, Tk, hd, Qs + h0 * hd, hd, ldq, Ks + h0 * hd,
+                           hd, ldq, [=](int g, int i, int j, float acc) {
+                             S[g * s_bs + i * lds + j] =
+                                 acc * scale + (1.0f - fm[i] * tm[j]) * kMask;
+                           });
     __syncthreads();
     softmax_rows(S, G * Tq, Tk, lds);
     __syncthreads();
-    gemm_smem<false>(G, Tq, hd, Tk, S, s_bs, lds, Vs + h0 * hd, hd, ldv,
-                     [=](int g, int i, int c, float acc) {
-                       out[i * D + (h0 + g) * hd + c] = acc;
-                     });
+    gemm_smem<false, kBf16>(G, Tq, hd, Tk, S, s_bs, lds, Vs + h0 * hd, hd, ldv,
+                            [=](int g, int i, int c, float acc) {
+                              out[i * D + (h0 + g) * hd + c] = acc;
+                            });
     __syncthreads();
   }
 }
@@ -751,6 +876,7 @@ struct Scratch {
 
 // One dual-attention layer in one direction: from (Tq rows) attends to
 // itself and to `to` (Tk rows); the result goes to dest (Tq x D).
+template <bool kBf16>
 __device__ __noinline__ void dual_attn(const float* from, const float* to, const float* fm,
                           const float* tm, int Tq, int Tk, const Ctx& x,
                           const DualW& w, float scale, const Scratch& s,
@@ -767,23 +893,23 @@ __device__ __noinline__ void dual_attn(const float* from, const float* to, const
   auto store = [&](float* y) {
     return [=](int m, int n, float v, float) { y[m * D + n] = v; };
   };
-  dense(out, D2, Tq, D, D, w.query, x, store(qp));
-  dense(out, D2, Tq, D, D, w.f_key, x, store(fk));
-  dense(out, D2, Tq, D, D, w.f_value, x, store(fv));
-  dense(ton, D2, Tk, D, D, w.t_key, x, store(tk));
-  dense(ton, D2, Tk, D, D, w.t_value, x, store(tv));
+  dense<kBf16>(out, D2, Tq, D, D, w.query, x, store(qp));
+  dense<kBf16>(out, D2, Tq, D, D, w.f_key, x, store(fk));
+  dense<kBf16>(out, D2, Tq, D, D, w.f_value, x, store(fv));
+  dense<kBf16>(ton, D2, Tk, D, D, w.t_key, x, store(tk));
+  dense<kBf16>(ton, D2, Tk, D, D, w.t_value, x, store(tv));
   __syncthreads();
-  attention(qp, fk, fv, fm, fm, Tq, Tq, x, scale, sout);
-  attention(qp, tk, tv, fm, tm, Tq, Tk, x, scale, xout);
+  attention<kBf16>(qp, fk, fv, fm, fm, Tq, Tq, x, scale, sout);
+  attention<kBf16>(qp, tk, tv, fm, tm, Tq, Tk, x, scale, xout);
   __syncthreads();
   float *s_val = qp, *x_val = fk, *s_gate = fv, *x_gate = tk;
-  dense(sout, D, Tq, D, D, w.s_dense, x, store(s_val));
-  dense(xout, D, Tq, D, D, w.x_dense, x, store(x_val));
+  dense<kBf16>(sout, D, Tq, D, D, w.s_dense, x, store(s_val));
+  dense<kBf16>(xout, D, Tq, D, D, w.x_dense, x, store(x_val));
   __syncthreads();
-  dense(s_val, D, Tq, D, D, w.s_gate, x, [=](int m, int n, float v, float) {
+  dense<kBf16>(s_val, D, Tq, D, D, w.s_gate, x, [=](int m, int n, float v, float) {
     s_gate[m * D + n] = sigmoidf(v);
   });
-  dense(x_val, D, Tq, D, D, w.x_gate, x, [=](int m, int n, float v, float) {
+  dense<kBf16>(x_val, D, Tq, D, D, w.x_gate, x, [=](int m, int n, float v, float) {
     x_gate[m * D + n] = sigmoidf(v);
   });
   __syncthreads();
@@ -796,15 +922,15 @@ __device__ __noinline__ void dual_attn(const float* from, const float* to, const
   }
   __syncthreads();
   float* outputs = cat + D;  // over ton, which is spent
-  dense(mix, D, Tq, D, D, w.guided, x,
+  dense<kBf16>(mix, D, Tq, D, D, w.guided, x,
         [=](int m, int n, float v, float) { outputs[m * D2 + n] = v; });
   __syncthreads();
   // bilinear_k = out @ d1 + outputs @ d2 + b as one product with K = 2D:
   // [out | outputs] @ [d1; d2] (packed next to each other), summed in f64
   // and rounded once, where the plain version rounds both products
   float *scores = tv, *values = sout;
-  dense(cat, D2, Tq, D2, D, Dense{w.b1d1, w.b1b}, x, store(scores));
-  dense(cat, D2, Tq, D2, D, Dense{w.b2d1, w.b2b}, x, store(values));
+  dense<kBf16>(cat, D2, Tq, D2, D, Dense{w.b1d1, w.b1b}, x, store(scores));
+  dense<kBf16>(cat, D2, Tq, D2, D, Dense{w.b2d1, w.b2b}, x, store(values));
   __syncthreads();
   // gate: sigmoid(scores*m + -1e30*(1-m)) * values, exactly 0 on padded rows
   float* gated = qp;
@@ -814,12 +940,12 @@ __device__ __noinline__ void dual_attn(const float* from, const float* to, const
   }
   __syncthreads();
   float* res = fk;
-  dense(gated, D, Tq, D, D, w.dense_1, x,
+  dense<kBf16>(gated, D, Tq, D, D, w.dense_1, x,
         [=](int m, int n, float v, float r) { res[m * D + n] = v + r; }, from);
   __syncthreads();
   layer_norm(res, fv, D, Tq, D, w.ln2);
   __syncthreads();
-  dense(fv, D, Tq, D, D, w.dense_2, x,
+  dense<kBf16>(fv, D, Tq, D, D, w.dense_2, x,
         [=](int m, int n, float v, float r) { dest[m * D + n] = v + r; }, res);
   __syncthreads();
 }
@@ -831,6 +957,7 @@ __device__ __noinline__ void dual_attn(const float* from, const float* to, const
 //   out = [x1, c2q, x1*c2q, x1*q2c] @ dense, c2q = score_ @ x2,
 //   q2c = (score_ @ score_t^T) @ x1
 // The four T1 x T2 / T1 x T1 matrices live in the workspace (cqreg).
+template <bool kBf16>
 __device__ __noinline__ void cq_attention(const float* x1, const float* x2, const float* m1,
                              const float* m2, int T1, int T2, const Ctx& x,
                              const CQW& w, float* x1wm, float* sub0,
@@ -845,7 +972,7 @@ __device__ __noinline__ void cq_attention(const float* x1, const float* x2, cons
   for (int e = threadIdx.x; e < T1 * D; e += blockDim.x)
     x1wm[e] = x1[e] * w.wm[e % D];
   __syncthreads();
-  gemm<true>(T1, T2, D, Mat{x1wm, D}, Mat{x2, D}, nullptr, nullptr, x,
+  gemm<true, kBf16>(T1, T2, D, Mat{x1wm, D}, Mat{x2, D}, nullptr, nullptr, x,
                     [=](int i, int j, float acc, float) {
                       sc[i * T2 + j] = (sub0[i] + sub1[j]) + acc;
                     });
@@ -892,22 +1019,22 @@ __device__ __noinline__ void cq_attention(const float* x1, const float* x2, cons
   __syncthreads();
   const int D4 = 4 * D;
   // c2q = score_ @ x2 straight into att[:, D:2D] and x1*c2q into att[:, 2D:3D]
-  gemm<false>(T1, D, T2, Mat{s_, T2}, Mat{x2, D}, nullptr, nullptr, x,
+  gemm<false, kBf16>(T1, D, T2, Mat{s_, T2}, Mat{x2, D}, nullptr, nullptr, x,
                      [=](int i, int c, float acc, float) {
                        att[i * D4 + c] = x1[i * D + c];
                        att[i * D4 + D + c] = acc;
                        att[i * D4 + 2 * D + c] = x1[i * D + c] * acc;
                      });
   // score_ @ score_t^T (T1 x T1)
-  gemm<true>(T1, T1, T2, Mat{s_, T2}, Mat{st, T2}, nullptr, nullptr, x,
+  gemm<true, kBf16>(T1, T1, T2, Mat{s_, T2}, Mat{st, T2}, nullptr, nullptr, x,
                     [=](int i, int i2, float acc, float) { m1m[i * T1 + i2] = acc; });
   __syncthreads();
-  gemm<false>(T1, D, T1, Mat{m1m, T1}, Mat{x1, D}, nullptr, nullptr, x,
+  gemm<false, kBf16>(T1, D, T1, Mat{m1m, T1}, Mat{x1, D}, nullptr, nullptr, x,
                      [=](int i, int c, float acc, float) {
                        att[i * D4 + 3 * D + c] = x1[i * D + c] * acc;
                      });
   __syncthreads();
-  dense(att, D4, T1, D4, D, w.dense, x,
+  dense<kBf16>(att, D4, T1, D4, D, w.dense, x,
         [=](int m, int n, float v, float) { out[m * D + n] = v; });
   __syncthreads();
 }
@@ -921,6 +1048,7 @@ struct FEW {
 
 // Feature encoder: y = x + pos -> conv block -> LN -> self-attention
 // (+ residual) -> LN -> dense (+ residual); y may not alias x.
+template <bool kBf16>
 __device__ __noinline__ void feature_encoder(const float* in, const float* vm, const Ctx& x,
                                 const FEW& w, float scale, const Scratch& s,
                                 float* y) {
@@ -930,7 +1058,7 @@ __device__ __noinline__ void feature_encoder(const float* in, const float* vm, c
     st4(y + e, make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w));
   }
   __syncthreads();
-  conv_block(y, T, x, w.conv, s.buf[0], s.buf[1]);
+  conv_block<kBf16>(y, T, x, w.conv, s.buf[0], s.buf[1]);
   float *o = s.buf[0], *q = s.buf[1], *k = s.buf[2], *v = s.buf[3],
         *att = s.buf[4], *res = s.buf[5], *ln2 = s.buf[6];
   layer_norm(y, o, D, T, D, w.ln1);
@@ -938,11 +1066,11 @@ __device__ __noinline__ void feature_encoder(const float* in, const float* vm, c
   auto store = [&](float* out) {
     return [=](int m, int n, float val, float) { out[m * D + n] = val; };
   };
-  dense(o, D, T, D, D, w.q, x, store(q));
-  dense(o, D, T, D, D, w.k, x, store(k));
-  dense(o, D, T, D, D, w.v, x, store(v));
+  dense<kBf16>(o, D, T, D, D, w.q, x, store(q));
+  dense<kBf16>(o, D, T, D, D, w.k, x, store(k));
+  dense<kBf16>(o, D, T, D, D, w.v, x, store(v));
   __syncthreads();
-  attention(q, k, v, vm, vm, T, T, x, scale, att);
+  attention<kBf16>(q, k, v, vm, vm, T, T, x, scale, att);
   __syncthreads();
   for (int e = 4 * threadIdx.x; e < T * D; e += 4 * blockDim.x) {
     const float4 a = ld4(att + e), b = ld4(y + e);
@@ -951,7 +1079,7 @@ __device__ __noinline__ void feature_encoder(const float* in, const float* vm, c
   __syncthreads();
   layer_norm(res, ln2, D, T, D, w.ln2);
   __syncthreads();
-  dense(ln2, D, T, D, D, w.dense, x,
+  dense<kBf16>(ln2, D, T, D, D, w.dense, x,
         [=](int m, int n, float val, float r) { y[m * D + n] = val + r; }, res);
   __syncthreads();
 }
@@ -975,6 +1103,7 @@ __device__ __forceinline__ float* vec(const Ctx& x, int i) {  // Lm floats each
 // Shared positional embedding and conv block on both streams, then the
 // dual-attention stack.  Returns the buffer of the final video stream (0 or
 // 2); the query stream follows it.
+template <bool kBf16>
 __device__ __noinline__ int encode(const Ctx& x, Cursor& c, const float* vfb,
                                    const float* qfb, const float* vm,
                                    const float* qm, int P, int attn_layer,
@@ -991,14 +1120,14 @@ __device__ __noinline__ int encode(const Ctx& x, Cursor& c, const float* vfb,
     st4(buf(x, 1) + e, make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w));
   }
   __syncthreads();
-  conv_block(buf(x, 0), T, x, cb, s.buf[0], s.buf[1]);
-  conv_block(buf(x, 1), W, x, cb, s.buf[0], s.buf[1]);
+  conv_block<kBf16>(buf(x, 0), T, x, cb, s.buf[0], s.buf[1]);
+  conv_block<kBf16>(buf(x, 1), W, x, cb, s.buf[0], s.buf[1]);
   int cur = 0;
   for (int li = 0; li < attn_layer; ++li) {
     const DualW dw = take_dual(c, D);
-    dual_attn(buf(x, cur), buf(x, cur + 1), vm, qm, T, W, x, dw, scale, s,
+    dual_attn<kBf16>(buf(x, cur), buf(x, cur + 1), vm, qm, T, W, x, dw, scale, s,
               buf(x, 2 - cur));
-    dual_attn(buf(x, cur + 1), buf(x, cur), qm, vm, W, T, x, dw, scale, s,
+    dual_attn<kBf16>(buf(x, cur + 1), buf(x, cur), qm, vm, W, T, x, dw, scale, s,
               buf(x, 3 - cur));
     cur = 2 - cur;
   }
@@ -1008,6 +1137,7 @@ __device__ __noinline__ int encode(const Ctx& x, Cursor& c, const float* vfb,
 // CQ fusion both ways, weighted pooling, cq_cat, the matching softmax (to
 // ms_out) and the soft label embedding: fuse and then outp in the final
 // streams' buffers.
+template <bool kBf16>
 __device__ __noinline__ void fuse(const Ctx& x, Cursor& c, const float* vm,
                                   const float* qm, int cur, const Scratch& s,
                                   float* ms_out, int use_gumbel, float tau) {
@@ -1016,9 +1146,9 @@ __device__ __noinline__ void fuse(const Ctx& x, Cursor& c, const float* vm,
   float* cqreg = buf(x, kBuffers);
   const CQW q2v_w = take_cq(c, D);
   const CQW v2q_w = take_cq(c, D);
-  cq_attention(buf(x, xv), buf(x, xq), vm, qm, T, W, x, q2v_w, s.buf[0],
+  cq_attention<kBf16>(buf(x, xv), buf(x, xq), vm, qm, T, W, x, q2v_w, s.buf[0],
                vec(x, 0), vec(x, 1), cqreg, s.buf[1], buf(x, q2v));
-  cq_attention(buf(x, xq), buf(x, xv), qm, vm, W, T, x, v2q_w, s.buf[0],
+  cq_attention<kBf16>(buf(x, xq), buf(x, xv), qm, vm, W, T, x, v2q_w, s.buf[0],
                vec(x, 0), vec(x, 1), cqreg, s.buf[1], buf(x, v2q));
   const float* wp = c.take(D);
   const Dense cq_cat = take_dense(c, 2 * D, D);
@@ -1063,7 +1193,7 @@ __device__ __noinline__ void fuse(const Ctx& x, Cursor& c, const float* vm,
   }
   __syncthreads();
   float* fuse_out = buf(x, xv);  // the streams are spent
-  dense(s.buf[1], D2, T, D2, D, cq_cat, x,
+  dense<kBf16>(s.buf[1], D2, T, D2, D, cq_cat, x,
         [=](int m, int n, float v, float) { fuse_out[m * D + n] = v; });
   __syncthreads();
 
@@ -1071,9 +1201,9 @@ __device__ __noinline__ void fuse(const Ctx& x, Cursor& c, const float* vm,
   const Dense match = take_dense(c, D, kLabels);
   const float* label_emb = c.take(kLabels * D);
   float* mlog = vec(x, 3);
-  narrow_dense(buf(x, xv), T, D, kLabels, match.w, [=](int m, int n, float v) {
-    mlog[m * kLabels + n] = v + match.b[n];
-  });
+  // an mm in the JAX kernel: it rounds on the bf16 path too
+  narrow_dense<kBf16>(buf(x, xv), T, D, kLabels, match.w,
+                      [=](int m, int n, float v) { mlog[m * kLabels + n] = v + match.b[n]; });
   __syncthreads();
   mlog = vec(x, 3);
   for (int t = threadIdx.x; t < T; t += blockDim.x) {
@@ -1102,8 +1232,11 @@ __device__ __noinline__ void fuse(const Ctx& x, Cursor& c, const float* vm,
     for (int e = threadIdx.x; e < T * D; e += blockDim.x) {
       const int t = e / D, c2 = e % D;
       float soft = 0.0f;
-      for (int k = 0; k < kLabels; ++k)
-        soft += mlog[t * kLabels + k] * label_emb[k * D + c2];
+      for (int k = 0; k < kLabels; ++k) {
+        // mm(mscores, label_emb) in the JAX kernel: it rounds on the bf16 path
+        const float p = mlog[t * kLabels + k], l = label_emb[k * D + c2];
+        soft += kBf16 ? round_bf16(p) * round_bf16(l) : p * l;
+      }
       outp[e] = (fz[e] + soft) * vm[t];
     }
   }
@@ -1113,6 +1246,7 @@ __device__ __noinline__ void fuse(const Ctx& x, Cursor& c, const float* vm,
 // The conditioned predictor: the feature encoder twice (into the spent
 // pair's buffers), then per side [LN(feats), outp] @ hidden + b -> relu
 // -> . dense + b.
+template <bool kBf16>
 __device__ __noinline__ void predict(const Ctx& x, Cursor& c, const float* vm,
                                      int cur, int P, float scale,
                                      const Scratch& s, float* start_logits,
@@ -1128,8 +1262,8 @@ __device__ __noinline__ void predict(const Ctx& x, Cursor& c, const float* vm,
   fe.v = take_dense(c, D, D);
   fe.ln2 = take_ln(c, D);
   fe.dense = take_dense(c, D, D);
-  feature_encoder(buf(x, outp), vm, x, fe, scale, s, buf(x, start_f));
-  feature_encoder(buf(x, start_f), vm, x, fe, scale, s, buf(x, end_f));
+  feature_encoder<kBf16>(buf(x, outp), vm, x, fe, scale, s, buf(x, start_f));
+  feature_encoder<kBf16>(buf(x, start_f), vm, x, fe, scale, s, buf(x, end_f));
   const LN lns[2] = {take_ln(c, D), take_ln(c, D)};
   Dense hidden[2], last[2];
   hidden[0] = take_dense(c, D2, D);
@@ -1144,14 +1278,13 @@ __device__ __noinline__ void predict(const Ctx& x, Cursor& c, const float* vm,
       wide[(e / D) * D2 + D + e % D] = op[e];
     __syncthreads();
     float* hid = s.buf[0];
-    dense(wide, D2, T, D2, D, hidden[which], x, [=](int m, int n, float v, float) {
-      hid[m * D + n] = fmaxf(v, 0.0f);
-    });
+    dense<kBf16>(wide, D2, T, D2, D, hidden[which], x,
+                 [=](int m, int n, float v, float) { hid[m * D + n] = fmaxf(v, 0.0f); });
     __syncthreads();
     const float* lb = last[which].b;
     float* out = which ? end_logits : start_logits;
-    narrow_dense(s.buf[0], T, D, 1, last[which].w,
-                 [=](int m, int, float v) { out[m] = v + lb[0]; });
+    narrow_dense<false>(s.buf[0], T, D, 1, last[which].w,
+                        [=](int m, int, float v) { out[m] = v + lb[0]; });
     __syncthreads();
   }
 }
@@ -1172,6 +1305,7 @@ struct Params {
   int use_gumbel;
 };
 
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_forward_kernel(const Params p) {
   const int b = blockIdx.x;
@@ -1206,13 +1340,26 @@ __global__ void __launch_bounds__(kThreads, 1)
   Scratch s;
   for (int i = 0; i < 9; ++i) s.buf[i] = buf(x, 4 + i);
   Cursor c{p.weights};
-  const int cur = encode(x, c, p.vf + static_cast<long>(b) * T * D,
+  const int cur = encode<kBf16>(x, c, p.vf + static_cast<long>(b) * T * D,
                          p.qf + static_cast<long>(b) * W * D, vm, qm, p.P,
                          p.attn_layer, scale, s);
-  fuse(x, c, vm, qm, cur, s, p.match_scores + static_cast<long>(b) * T * kLabels,
-       p.use_gumbel, p.tau);
-  predict(x, c, vm, cur, p.P, scale, s, p.start_logits + static_cast<long>(b) * T,
-          p.end_logits + static_cast<long>(b) * T);
+  fuse<kBf16>(x, c, vm, qm, cur, s,
+              p.match_scores + static_cast<long>(b) * T * kLabels, p.use_gumbel,
+              p.tau);
+  predict<kBf16>(x, c, vm, cur, p.P, scale, s,
+                 p.start_logits + static_cast<long>(b) * T,
+                 p.end_logits + static_cast<long>(b) * T);
+}
+
+// Opts the kernel's instantiation in to `smem` bytes of dynamic shared
+// memory and launches it; returns the first CUDA error.
+template <bool kBf16>
+int launch(const Params& p, int B, int smem, cudaStream_t stream) {
+  const cudaError_t rc = cudaFuncSetAttribute(
+      fused_forward_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  fused_forward_kernel<kBf16><<<B, kThreads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1256,7 +1403,7 @@ extern "C" int fused_forward_f32(const void* weights, const void* vf,
                                  void* end_logits, void* match_scores,
                                  void* workspace, int B, int T, int W, int D,
                                  int H, int attn_layer, int P, float tau,
-                                 int use_gumbel, void* stream) {
+                                 int use_gumbel, int mxu_bf16, void* stream) {
   if (B <= 0) return 0;
   if (T < 1 || W < 1 || T > kMaxLen || W > kMaxLen || D > kMaxDim ||
       D % 4 != 0 || H < 1 || D % H != 0)
@@ -1281,9 +1428,6 @@ extern "C" int fused_forward_f32(const void* weights, const void* vf,
   p.tau = tau;
   p.use_gumbel = use_gumbel;
   const int smem = static_cast<int>(fused_forward_smem_bytes(T, W, D, H));
-  const cudaError_t rc = cudaFuncSetAttribute(
-      fused_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  fused_forward_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return mxu_bf16 ? launch<true>(p, B, smem, static_cast<cudaStream_t>(stream))
+                  : launch<false>(p, B, smem, static_cast<cudaStream_t>(stream));
 }

@@ -11,6 +11,12 @@ A pass is stochastic iff it is given a ``torch.Generator``: dropout and the
 matching head's gumbel noise draw from it, and without one the pass is the
 deterministic one (JAX's ``deterministic=True``).  ``module.train()`` and
 ``.eval()`` change nothing.
+
+Activations run in the dtype they arrive in (f32 or bf16, the model's
+``compute_dtype``), as in the JAX package: parameters stay f32 and are cast
+to it at each use, products sum in f32 (a dense layer's output is then
+rounded back), LayerNorm statistics and softmaxes are f32, and attention
+scores, the trilinear similarity and the pooling logits stay f32.
 """
 
 from __future__ import annotations
@@ -26,6 +32,12 @@ from hual_tpu_torch.models.initializers import glorot_uniform_tf
 from hual_tpu_torch.ops.masking import attention_bias, mask_logits
 
 Rate = Union[float, torch.Tensor]
+
+
+def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b summed in f32, whatever the operands' dtype (the JAX package's
+    ``preferred_element_type=f32`` where the result stays f32)."""
+    return torch.matmul(a.float(), b.float())
 
 
 def dropout(x: torch.Tensor, rate: Rate,
@@ -94,7 +106,8 @@ class Conv1D(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.linear(x, self.weight, self.bias)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        out = F.linear(x, self.weight.to(x.dtype), bias)
         return out if self.activation is None else self.activation(out)
 
 
@@ -119,9 +132,11 @@ class DepthwiseSeparableConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # SAME padding for an odd kernel: (k-1)/2 each side
-        dw = F.conv1d(x.transpose(1, 2), self.depthwise_filter,
+        dt = x.dtype
+        dw = F.conv1d(x.transpose(1, 2), self.depthwise_filter.to(dt),
                       padding=(self.kernel_size - 1) // 2, groups=self.dim)
-        out = F.linear(dw.transpose(1, 2), self.pointwise_filter, self.bias)
+        out = F.linear(dw.transpose(1, 2), self.pointwise_filter.to(dt),
+                       self.bias.to(dt))
         return torch.relu(out)
 
 
@@ -138,7 +153,8 @@ class Bilinear(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-        return self.dense_1(x1) + self.dense_2(x2) + self.bias
+        out = self.dense_1(x1) + self.dense_2(x2)
+        return out + self.bias.to(out.dtype)
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -155,11 +171,12 @@ def attend(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
            bias: torch.Tensor, drop_rate: Rate = 0.0,
            generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """softmax(q k^T / sqrt(hd) + bias) v over (B, H, T, hd) heads, with
-    dropout on the probabilities."""
+    dropout on the probabilities; scores and probabilities in f32, the
+    result in the value's dtype."""
     scale = 1.0 / math.sqrt(float(query.shape[-1]))
-    scores = torch.matmul(query, key.transpose(-1, -2)) * scale
+    scores = _mm32(query, key.transpose(-1, -2)) * scale
     probs = dropout(torch.softmax(scores + bias, dim=-1), drop_rate, generator)
-    return torch.matmul(probs, value)
+    return torch.matmul(probs.to(value.dtype), value)
 
 
 class DualMultiheadAttention(nn.Module):
@@ -220,10 +237,11 @@ class TrilinearAttention(nn.Module):
                 generator=None) -> torch.Tensor:
         x1 = dropout(x1, drop_rate, generator)
         x2 = dropout(x2, drop_rate, generator)
-        sub0 = torch.matmul(x1, self.linear_kernel4arg0)[:, :, None]   # (B,L1,1)
-        sub1 = torch.matmul(x2, self.linear_kernel4arg1)[:, None, :]   # (B,1,L2)
-        sub2 = torch.matmul(x1 * self.linear_kernel4mul, x2.transpose(1, 2))
-        return sub0 + sub1 + sub2
+        dt = x1.dtype
+        sub0 = _mm32(x1, self.linear_kernel4arg0.to(dt))[:, :, None]   # (B,L1,1)
+        sub1 = _mm32(x2, self.linear_kernel4arg1.to(dt))[:, None, :]   # (B,1,L2)
+        sub2 = _mm32(x1 * self.linear_kernel4mul.to(dt), x2.transpose(1, 2))
+        return sub0 + sub1 + sub2                                      # f32
 
 
 class CQAttention(nn.Module):
@@ -241,9 +259,12 @@ class CQAttention(nn.Module):
                                          generator)                   # (B,L1,L2)
         score_ = torch.softmax(mask_logits(score, mask2[:, None, :]), dim=-1)
         score_t = torch.softmax(mask_logits(score, mask1[:, :, None]), dim=1)
+        dt = inputs1.dtype
+        score_, score_t = score_.to(dt), score_t.to(dt)
         c2q = torch.matmul(score_, inputs2)
-        q2c = torch.matmul(torch.matmul(score_, score_t.transpose(1, 2)),
-                           inputs1)
+        # both products in f32, rounded once (the JAX package's one
+        # three-operand einsum)
+        q2c = _mm32(_mm32(score_, score_t.transpose(1, 2)), inputs1).to(dt)
         att = torch.cat([inputs1, c2q, inputs1 * c2q, inputs1 * q2c], dim=-1)
         return self.dense(att), score
 
@@ -261,9 +282,10 @@ class WeightedPooling(nn.Module):
             self.weight.copy_(glorot_uniform_tf((self.dim, 1), generator)[:, 0])
 
     def forward(self, inputs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        x = torch.matmul(inputs, self.weight)[:, :, None]              # (B,L,1)
+        dt = inputs.dtype
+        x = _mm32(inputs, self.weight.to(dt))[:, :, None]              # (B,L,1)
         alphas = torch.softmax(mask_logits(x, mask[:, :, None]), dim=1)
-        return (inputs * alphas).sum(dim=1)
+        return (inputs.float() * alphas.to(dt).float()).sum(dim=1).to(dt)
 
 
 class CQConcat(nn.Module):

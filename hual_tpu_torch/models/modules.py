@@ -113,7 +113,7 @@ class PositionalEmbedding(nn.Module):
         if seq_len > self.max_pos_len:
             raise ValueError(f"sequence length {seq_len} exceeds the "
                              f"positional table's {self.max_pos_len}")
-        return x + self.position_embeddings[None, :seq_len, :]
+        return x + self.position_embeddings[None, :seq_len, :].to(x.dtype)
 
 
 class ConvBlock(nn.Module):

@@ -8,10 +8,17 @@ span decode.  ``span_decode="pallas"`` decodes with the Hopper kernel
 either decodes the detached logits, so the train step launches the kernel
 too.  The forward returns logits and scores; :func:`seqpan_loss` adds the
 losses, so one forward serves train, eval and MC-dropout passes.
+
+``compute_dtype`` ("float32" or "bfloat16") is the activation dtype after
+the embeddings, as in the JAX package; the logits, the CQ features and
+everything loss-facing leave in f32.  :meth:`SeqPAN.with_compute_dtype` is
+the JAX package's ``model.clone(compute_dtype=...)``: the same modules and
+parameters at another activation dtype.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Optional
 
 import torch
@@ -36,11 +43,13 @@ class SeqPAN(nn.Module):
                  attn_layer: int = 2, max_vlen: int = 64, word_dim: int = 300,
                  char_dim: int = 50, num_chars: int = 100, tau: float = 0.3,
                  use_gumbel: bool = False, span_decode: str = "xla",
+                 compute_dtype: str = "float32",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if span_decode not in ("xla", "pallas"):
             raise ValueError(f"span_decode must be 'xla' or 'pallas', "
                              f"got {span_decode!r}")
+        self.compute_dtype = _check_dtype(compute_dtype)
         self.max_vlen, self.attn_layer = max_vlen, attn_layer
         self.dim, self.num_heads = dim, num_heads
         self.tau, self.use_gumbel = tau, use_gumbel
@@ -72,7 +81,16 @@ class SeqPAN(nn.Module):
                    word_dim=m.word_dim, char_dim=m.char_dim,
                    num_chars=m.num_chars, tau=config.loss.tau,
                    use_gumbel=not config.loss.no_gumbel,
-                   span_decode=m.span_decode, generator=generator)
+                   span_decode=m.span_decode, compute_dtype=m.compute_dtype,
+                   generator=generator)
+
+    def with_compute_dtype(self, compute_dtype: str) -> "SeqPAN":
+        """This model at another activation dtype: a shallow copy whose
+        modules and parameters are this model's own, so it adds no weights
+        and nothing to a checkpoint."""
+        view = copy.copy(self)
+        view.compute_dtype = _check_dtype(compute_dtype)
+        return view
 
     def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
         """Draw every weight from ``generator`` (a fresh seed-0 generator if
@@ -99,11 +117,12 @@ class SeqPAN(nn.Module):
         v_mask = sequence_mask(batch["video_seq_len"], self.max_vlen)
         q_mask = (batch["word_ids"] != 0).to(torch.int32)
         drop = dict(drop_rate=drop_rate, generator=generator)
+        dt = _DTYPES[self.compute_dtype]
 
         qfeats = torch.cat([self.word_embs(batch["word_ids"], word_vectors, **drop),
                             self.char_embs(batch["char_ids"], **drop)], dim=-1)
-        qfeats = self.q_layer_norm(self.query_conv1d(qfeats))
-        vfeats = dropout(batch["video_features"], drop_rate, generator)
+        qfeats = self.q_layer_norm(self.query_conv1d(qfeats.to(dt)))
+        vfeats = dropout(batch["video_features"].to(dt), drop_rate, generator)
         vfeats = self.v_layer_norm(self.video_conv1d(vfeats))
 
         vfeats = self.conv_block(self.pos_emb(vfeats), **drop)
@@ -126,10 +145,12 @@ class SeqPAN(nn.Module):
         ortho = self.label_emb @ self.label_emb.T * (1.0 - eye)
         match_loss = match_loss + ortho.square().sum().sqrt()
 
-        soft_label_embs = match_scores @ self.label_emb
-        outputs = (fuse_feats + soft_label_embs) * v_mask[:, :, None]
+        soft_label_embs = (match_scores @ self.label_emb).to(dt)
+        outputs = (fuse_feats + soft_label_embs) * v_mask[:, :, None].to(dt)
         start_logits, end_logits = self.predictor(outputs, v_mask, drop_rate,
                                                   drop_rate, generator)
+        start_logits, end_logits = start_logits.float(), end_logits.float()
+        q2v_feats, v2q_feats = q2v_feats.float(), v2q_feats.float()
 
         out = {"v_mask": v_mask, "q_mask": q_mask,
                "q2v_feats": q2v_feats, "v2q_feats": v2q_feats,
@@ -142,6 +163,16 @@ class SeqPAN(nn.Module):
             out["start_index"], out["end_index"] = decoder(
                 start_logits.detach(), end_logits.detach(), v_mask)
         return out
+
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _check_dtype(name: str) -> str:
+    if name not in _DTYPES:
+        raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, "
+                         f"got {name!r}")
+    return name
 
 
 def seqpan_loss(outputs: dict[str, torch.Tensor], batch: dict[str, torch.Tensor],

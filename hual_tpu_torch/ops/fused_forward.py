@@ -12,9 +12,15 @@ conditioned predictor.  Its inputs are the projected and normalised streams
   in the order ``csrc/fused_forward.cu`` walks it (:func:`pack_order`).
 * :func:`forward_math` is the plain PyTorch version of K2's function, with
   ordinary per-sample masked attention; it reads every weight from the
-  packed buffer, so it checks the packing too.
+  packed buffer, so it checks the packing too.  With ``mxu_bf16`` it is
+  the JAX kernel's ``mxu_bf16`` branch: each product that
+  ``_forward_math`` runs through ``mm``/``mmt`` rounds both operands to
+  bf16 and sums in the working dtype; the layout moves (``mm_exact``), the
+  elementwise sums and everything else keep full precision.
 * :func:`encoder_inputs` runs the model's own embedding, projection and LN
-  submodules; :func:`seqpan_forward_fused` chains them, K2 and K1.
+  submodules in f32, whatever the model's ``compute_dtype`` (as the JAX
+  package's fused path does); :func:`seqpan_forward_fused` chains them, K2
+  and K1.
 
 Packed layout: each leaf is stored row-major in the JAX package's layout
 with its unit axes dropped: a dense kernel is ``(in, out)``, a depthwise
@@ -149,16 +155,25 @@ def pack_weights(model) -> PackedWeights:
 # -- the plain version ----------------------------------------------------------
 def forward_math(packed: PackedWeights, vf: torch.Tensor, qf: torch.Tensor,
                  v_mask: torch.Tensor, q_mask: torch.Tensor, *, attn_layer: int,
-                 num_heads: int, tau: float, use_gumbel: bool
+                 num_heads: int, tau: float, use_gumbel: bool,
+                 mxu_bf16: bool = False
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2's function in plain PyTorch: (start_logits, end_logits,
-    match_scores), all f32.  Weights come from ``packed``."""
+    match_scores) in the inputs' dtype (f32; f64 for a reference).  Weights
+    come from ``packed``; ``mxu_bf16`` rounds the operands of the JAX
+    kernel's ``mm``/``mmt`` products to bf16."""
     w = packed
-    vm = v_mask.to(torch.float32)
-    qm = q_mask.to(torch.float32)
+    vm = v_mask.to(vf.dtype)
+    qm = q_mask.to(vf.dtype)
     D = vf.shape[-1]
     H = num_heads
     hd = D // H
+
+    def rnd(x):  # round to nearest even bf16, kept in the working dtype
+        return x.to(torch.bfloat16).to(x.dtype) if mxu_bf16 else x
+
+    def mm(a, b):  # the JAX kernel's mm / mmt
+        return torch.matmul(rnd(a), rnd(b))
 
     def ln(x, path):
         mean = x.mean(dim=-1, keepdim=True)
@@ -167,7 +182,7 @@ def forward_math(packed: PackedWeights, vf: torch.Tensor, qf: torch.Tensor,
             + w(path + "/bias")
 
     def dense(x, path, bias=True):
-        y = torch.matmul(x, w(path + "/kernel"))
+        y = mm(x, w(path + "/kernel"))
         return y + w(path + "/bias") if bias else y
 
     def conv_block(x, path):
@@ -180,7 +195,7 @@ def forward_math(packed: PackedWeights, vf: torch.Tensor, qf: torch.Tensor,
             acc = torch.zeros_like(h)
             for k in range(filt.shape[0]):
                 acc = acc + hp[:, k:k + L] * filt[k]
-            pw = torch.matmul(acc, w(dwp + "/pointwise_filter"))
+            pw = mm(acc, w(dwp + "/pointwise_filter"))
             x = torch.relu(pw + w(dwp + "/bias")) + x
         return x
 
@@ -193,9 +208,10 @@ def forward_math(packed: PackedWeights, vf: torch.Tensor, qf: torch.Tensor,
         kh = k.reshape(B, Tk, H, hd).transpose(1, 2)
         vh = v.reshape(B, Tk, H, hd).transpose(1, 2)
         bias = (1.0 - fm[:, :, None] * tm[:, None, :]) * MASK_VALUE
-        scores = torch.matmul(qh, kh.transpose(-1, -2)) * (1.0 / math.sqrt(hd))
+        # scaled after the product, as the JAX kernel does
+        scores = mm(qh, kh.transpose(-1, -2)) * (1.0 / math.sqrt(hd))
         prob = torch.softmax(scores + bias[:, None], dim=-1)
-        return torch.matmul(prob, vh).transpose(1, 2).reshape(B, Tq, D)
+        return mm(prob, vh).transpose(1, 2).reshape(B, Tq, D)
 
     def dual_attn(frm, to, fm, tm, pre):
         m = f"{pre}/dual_multihead_attention"
@@ -213,8 +229,8 @@ def forward_math(packed: PackedWeights, vf: torch.Tensor, qf: torch.Tensor,
         outputs = dense(s_gate * x_val + x_gate * s_val, m + "/guided_dense")
 
         def bilinear(name):
-            return (torch.matmul(out, w(f"{m}/{name}/dense_1/kernel"))
-                    + torch.matmul(outputs, w(f"{m}/{name}/dense_2/kernel"))
+            return (mm(out, w(f"{m}/{name}/dense_1/kernel"))
+                    + mm(outputs, w(f"{m}/{name}/dense_2/kernel"))
                     + w(f"{m}/{name}/bias"))
 
         f = fm[:, :, None]
@@ -225,16 +241,19 @@ def forward_math(packed: PackedWeights, vf: torch.Tensor, qf: torch.Tensor,
 
     def cq_attention(x1, x2, m1, m2, name):
         tri = f"{name}/efficient_trilinear"
+        # sub0 and sub1 are elementwise sums in the JAX kernel, full precision
         sub0 = torch.matmul(x1, w(tri + "/linear_kernel4arg0"))[:, :, None]
         sub1 = torch.matmul(x2, w(tri + "/linear_kernel4arg1"))[:, None, :]
-        sub2 = torch.matmul(x1 * w(tri + "/linear_kernel4mul"), x2.transpose(1, 2))
+        sub2 = mm(x1 * w(tri + "/linear_kernel4mul"), x2.transpose(1, 2))
         score = sub0 + sub1 + sub2                              # (B, T1, T2)
         mk2 = m2[:, None, :]
         mk1 = m1[:, :, None]
         score_ = torch.softmax(score * mk2 + MASK_VALUE * (1.0 - mk2), dim=-1)
         score_t = torch.softmax(score * mk1 + MASK_VALUE * (1.0 - mk1), dim=1)
-        c2q = torch.matmul(score_, x2)
-        q2c = torch.matmul(torch.matmul(score_, score_t.transpose(1, 2)), x1)
+        c2q = mm(score_, x2)
+        # the JAX kernel's association: the inner product's result is
+        # rounded again as an operand
+        q2c = mm(mm(score_, score_t.transpose(1, 2)), x1)
         att = torch.cat([x1, c2q, x1 * c2q, x1 * q2c], dim=-1)
         return dense(att, name + "/dense", bias=False)
 
@@ -257,6 +276,8 @@ def forward_math(packed: PackedWeights, vf: torch.Tensor, qf: torch.Tensor,
 
     q2v = cq_attention(vf, qf, vm, qm, "q2v_attn")                 # (B, T, D)
     v2q = cq_attention(qf, vf, qm, vm, "v2q_attn")                 # (B, W, D)
+    # the pooling and the tile are elementwise sums and layout moves
+    # (mm_exact) in the JAX kernel: full precision
     x = torch.matmul(v2q, w("cq_cat/weighted_pooling/weight"))[:, :, None]
     qmk = qm[:, :, None]
     alphas = torch.softmax(x * qmk + MASK_VALUE * (1.0 - qmk), dim=1)
@@ -268,7 +289,7 @@ def forward_math(packed: PackedWeights, vf: torch.Tensor, qf: torch.Tensor,
     if use_gumbel:
         mlogits = mlogits / tau          # the deterministic part only
     mscores = torch.softmax(mlogits, dim=-1)                       # (B, T, 4)
-    outputs = (fuse + torch.matmul(mscores, w("label_emb"))) * vm[:, :, None]
+    outputs = (fuse + mm(mscores, w("label_emb"))) * vm[:, :, None]
 
     start_f = feature_encoder(outputs, vm)
     end_f = feature_encoder(start_f, vm)
@@ -277,9 +298,12 @@ def forward_math(packed: PackedWeights, vf: torch.Tensor, qf: torch.Tensor,
         [ln(start_f, p + "/start_layer_norm"), outputs], dim=-1), p + "/start_hidden"))
     end_h = torch.relu(dense(torch.cat(
         [ln(end_f, p + "/end_layer_norm"), outputs], dim=-1), p + "/end_hidden"))
-    # the (D, 1) kernels are packed as (D,): these products are (B, T)
-    start_logits = dense(start_h, p + "/start_dense")
-    end_logits = dense(end_h, p + "/end_dense")
+    # the (D, 1) kernels are packed as (D,): these products are (B, T),
+    # elementwise sums in the JAX kernel, full precision
+    start_logits = (torch.matmul(start_h, w(p + "/start_dense/kernel"))
+                    + w(p + "/start_dense/bias"))
+    end_logits = (torch.matmul(end_h, w(p + "/end_dense/kernel"))
+                  + w(p + "/end_dense/bias"))
     return start_logits, end_logits, mscores
 
 
@@ -299,16 +323,19 @@ def encoder_inputs(model, batch: dict[str, torch.Tensor],
 
 def seqpan_forward_fused(model, packed: PackedWeights,
                          batch: dict[str, torch.Tensor],
-                         word_vectors: torch.Tensor) -> dict[str, torch.Tensor]:
-    """Deterministic SeqPAN forward: the input front, K2, then K1's span
-    decode.  Carries the keys the eval and infer sweeps read."""
+                         word_vectors: torch.Tensor,
+                         mxu_bf16: bool = False) -> dict[str, torch.Tensor]:
+    """Deterministic SeqPAN forward: the input front, K2 (with bf16
+    products under ``mxu_bf16``), then K1's span decode.  Carries the keys
+    the eval and infer sweeps read."""
     from hual_tpu_torch.ops.kernels.fused_forward import fused_forward
     from hual_tpu_torch.ops.kernels.span_decode import span_decode
 
     vf, qf, v_mask, q_mask = encoder_inputs(model, batch, word_vectors)
     start_logits, end_logits, match_scores = fused_forward(
         packed, vf, qf, v_mask, q_mask, attn_layer=model.attn_layer,
-        num_heads=model.num_heads, tau=model.tau, use_gumbel=model.use_gumbel)
+        num_heads=model.num_heads, tau=model.tau, use_gumbel=model.use_gumbel,
+        mxu_bf16=mxu_bf16)
     start_index, end_index = span_decode(start_logits, end_logits, v_mask)
     return {"v_mask": v_mask, "q_mask": q_mask, "match_scores": match_scores,
             "start_logits": start_logits, "end_logits": end_logits,

@@ -1,9 +1,13 @@
 """Wrapper of the Hopper fused-forward kernel K2 (``csrc/fused_forward.cu``).
 
-It replaces the TPU kernel ``hual_tpu/ops/pallas/fused_forward.py``.  For
-tensors on the CPU it runs the plain version, ``ops.fused_forward.
-forward_math``; for CUDA tensors it launches the kernel or raises, and never
-falls back.  ``fused_forward.launches`` counts the kernel's launches.
+It replaces the TPU kernel ``hual_tpu/ops/pallas/fused_forward.py``, both
+of its product paths: f64 sums of f32 operands (the default) and, with
+``mxu_bf16``, bf16 operands with f32 sums (the JAX kernel's ``mxu_bf16``).
+For tensors on the CPU it runs the plain version, ``ops.fused_forward.
+forward_math``, with the same ``mxu_bf16``; for CUDA tensors it launches the
+kernel on that path or raises, and never falls back to the other path or
+the plain version.  ``fused_forward.launches`` counts the launches of the
+default path, ``fused_forward.launches_bf16`` those of the bf16 path.
 The kernel takes T and W up to :data:`MAX_LEN` and D up to :data:`MAX_DIM`;
 :func:`check_kernel_shape` is that limit, checked before every launch.
 """
@@ -30,7 +34,7 @@ def _library():
     lib = build.load("fused_forward")
     lib.fused_forward_f32.argtypes = (
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     lib.fused_forward_f32.restype = ctypes.c_int
     lib.fused_forward_weight_floats.argtypes = [ctypes.c_int] * 3
     lib.fused_forward_weight_floats.restype = ctypes.c_longlong
@@ -116,15 +120,17 @@ def _check(packed: PackedWeights, vf, qf, v_mask, q_mask, attn_layer: int,
 
 def fused_forward(packed: PackedWeights, vf: torch.Tensor, qf: torch.Tensor,
                   v_mask: torch.Tensor, q_mask: torch.Tensor, *, attn_layer: int,
-                  num_heads: int, tau: float, use_gumbel: bool
+                  num_heads: int, tau: float, use_gumbel: bool,
+                  mxu_bf16: bool = False
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2: projected streams vf (B,T,D) / qf (B,W,D) f32 and their int32 0/1
-    masks -> (start_logits (B,T), end_logits (B,T), match_scores (B,T,4))."""
+    masks -> (start_logits (B,T), end_logits (B,T), match_scores (B,T,4)),
+    f32; ``mxu_bf16`` runs the products on bf16 operands."""
     _check(packed, vf, qf, v_mask, q_mask, attn_layer, num_heads)
     if vf.device.type == "cpu":
         return forward_math(packed, vf, qf, v_mask, q_mask,
                             attn_layer=attn_layer, num_heads=num_heads,
-                            tau=tau, use_gumbel=use_gumbel)
+                            tau=tau, use_gumbel=use_gumbel, mxu_bf16=mxu_bf16)
     if vf.device.type != "cuda":
         raise ValueError(f"fused_forward: unsupported device {vf.device}")
     B, T, D = vf.shape
@@ -150,11 +156,15 @@ def fused_forward(packed: PackedWeights, vf: torch.Tensor, qf: torch.Tensor,
             v_mask.data_ptr(), q_mask.data_ptr(), start.data_ptr(),
             end.data_ptr(), scores.data_ptr(), workspace.data_ptr(),
             B, T, W, D, num_heads, attn_layer, packed.max_pos, float(tau),
-            int(bool(use_gumbel)), stream)
+            int(bool(use_gumbel)), int(bool(mxu_bf16)), stream)
     if rc != 0:
         raise RuntimeError(f"fused_forward kernel launch failed: CUDA error {rc}")
-    fused_forward.launches += 1
+    if mxu_bf16:
+        fused_forward.launches_bf16 += 1
+    else:
+        fused_forward.launches += 1
     return start, end, scores
 
 
 fused_forward.launches = 0
+fused_forward.launches_bf16 = 0

@@ -10,6 +10,11 @@ labels) is the CLI's ``--suffix re0`` train and infer_trainset.
 
     python -m hual_tpu_torch.orchestrate charades            # rounds 1..3
     python -m hual_tpu_torch.orchestrate anet --rounds 4
+    python -m hual_tpu_torch.orchestrate charades --deterministic
+
+``--deterministic`` turns on deterministic mode
+(``runtime/debug.enable_deterministic``), under which a round resumed from
+its ``state.pt`` replays the uninterrupted one bit for bit.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import os
 from hual_tpu_torch import cli
 from hual_tpu_torch.active.engine import update_labels
 from hual_tpu_torch.config import Config
+from hual_tpu_torch.runtime.debug import enable_deterministic
 from hual_tpu_torch.runtime.logger import get_logger
 
 DEFAULT_ROUNDS = {"charades": 3, "anet": 4}
@@ -185,7 +191,12 @@ def main(argv=None) -> int:
                              "(reference) or every sample")
     parser.add_argument("--strategy-seed", type=int, default=12345,
                         help="seed for the 'random' point strategy")
+    parser.add_argument("--deterministic", action="store_true",
+                        help="deterministic algorithms, so a resumed round "
+                             "replays the uninterrupted one bit for bit")
     args = parser.parse_args(argv)
+    if args.deterministic:
+        enable_deterministic()
     run_rounds(args.task, rounds=args.rounds, base_config_path=args.config,
                start_round=args.start_round,
                point_strategy=args.point_strategy, selection=args.selection,

@@ -13,14 +13,18 @@ and outputs stay on the device until the caller fetches them.
   and IoUs still on the device.
 * Sweeps, two backends chosen by ``train.sweep_backend``: ``flax``, the
   port's eager ``SeqPAN`` (its span decode follows ``model.span_decode``);
-  ``fused``, ``encoder_inputs`` + K2 (``ops/kernels/fused_forward.py``) +
-  K1 (``ops/kernels/span_decode.py``) with the weights packed at the start
-  of each sweep.
+  ``fused``, ``encoder_inputs`` + K2 (``ops/kernels/fused_forward.py``,
+  with bf16 products under ``mxu_bf16``, ``train.fused_mxu_bf16``) + K1
+  (``ops/kernels/span_decode.py``) with the weights packed at the start of
+  each sweep.
 
 MC passes: the clean pass is deterministic; the two stochastic passes run
 the eager model at ``mc_droprate``, each with its own generator, and do not
-decode.  Reuse rule: at ``mc_droprate`` 0 with the gumbel head off nothing is
-stochastic, so both "stochastic" passes are the clean pass.
+decode.  ``mc_model`` (``train.mc_dtype``: the model at another activation
+dtype, sharing its parameters) runs the stochastic passes only; the clean
+pass always runs the main model.  Reuse rule: at ``mc_droprate`` 0 with the
+gumbel head off nothing is stochastic, so both "stochastic" passes are the
+clean pass.
 
 Random streams: the generator of train step ``k`` is seeded from
 ``(train.seed + 17, k)``, those of sweep batch ``i`` from ``(seed, i, 0)``
@@ -152,14 +156,17 @@ def _stochastic(model, mc_droprate: float) -> bool:
 
 
 def _mc_passes(model, batch: dict, word_vectors: torch.Tensor,
-               mc_droprate: float, generators, clean: dict) -> list[dict]:
+               mc_droprate: float, generators, clean: dict,
+               mc_model=None) -> list[dict]:
     """The two MC passes: the clean pass twice by the reuse rule, else two
-    stochastic eager passes that do not decode."""
+    stochastic eager passes of ``mc_model`` (``model`` if None) that do not
+    decode."""
     if not _stochastic(model, mc_droprate):
         return [clean, clean]
     if generators is None or len(generators) != 2:
         raise ValueError("the stochastic MC passes need two generators")
-    return [model(batch, word_vectors, drop_rate=mc_droprate, generator=g,
+    stoch = model if mc_model is None else mc_model
+    return [stoch(batch, word_vectors, drop_rate=mc_droprate, generator=g,
                   decode=False) for g in generators]
 
 
@@ -195,13 +202,14 @@ def eval_step(model, batch: dict, word_vectors: torch.Tensor) -> dict:
 
 @torch.inference_mode()
 def infer_step(model, batch: dict, word_vectors: torch.Tensor,
-               mc_droprate: float = 0.0, generators=None) -> dict:
+               mc_droprate: float = 0.0, generators=None, mc_model=None) -> dict:
     """Clean forward plus the two MC passes; ``generators`` (two) are
     needed unless the reuse rule holds."""
     batch = dequantize_batch(batch)
     clean = model(batch, word_vectors)
     return _infer_outputs(clean, _mc_passes(model, batch, word_vectors,
-                                            mc_droprate, generators, clean), batch)
+                                            mc_droprate, generators, clean,
+                                            mc_model), batch)
 
 
 @torch.inference_mode()
@@ -215,32 +223,35 @@ def eval_sweep(model, data: dict, sels: torch.Tensor,
 @torch.inference_mode()
 def infer_sweep(model, data: dict, sels: torch.Tensor,
                 word_vectors: torch.Tensor, mc_droprate: float = 0.0,
-                seed: int = 0) -> dict:
+                seed: int = 0, mc_model=None) -> dict:
     """sels (n_batches, B) -> dict of (n_batches, B, ...), eager model;
     batch ``i``'s MC passes draw from ``(seed, i, 0)`` and ``(seed, i, 1)``."""
     return _stack([infer_step(model, gather_batch(data, sel), word_vectors,
                               mc_droprate, _mc_generators(model, mc_droprate,
-                                                          sels.device, seed, i))
+                                                          sels.device, seed, i),
+                              mc_model)
                    for i, sel in enumerate(sels)])
 
 
 @torch.inference_mode()
 def fused_eval_sweep(model, data: dict, sels: torch.Tensor,
-                     word_vectors: torch.Tensor) -> torch.Tensor:
+                     word_vectors: torch.Tensor,
+                     mxu_bf16: bool = False) -> torch.Tensor:
     """Eval sweep through K2 and K1: sels (n_batches, B) -> ious."""
     packed = pack_weights(model)
     ious = []
     for sel in sels:
         batch = gather_batch(data, sel)
         ious.append(_ious(seqpan_forward_fused(model, packed, batch,
-                                               word_vectors), batch))
+                                               word_vectors, mxu_bf16), batch))
     return torch.stack(ious)
 
 
 @torch.inference_mode()
 def fused_infer_sweep(model, data: dict, sels: torch.Tensor,
                       word_vectors: torch.Tensor, mc_droprate: float = 0.0,
-                      seed: int = 0) -> dict:
+                      seed: int = 0, mc_model=None,
+                      mxu_bf16: bool = False) -> dict:
     """AL sweep with the clean pass through K2 and K1 and the stochastic
     passes on the eager model; same stacked schema and streams as
     :func:`infer_sweep`."""
@@ -248,9 +259,10 @@ def fused_infer_sweep(model, data: dict, sels: torch.Tensor,
     outs = []
     for i, sel in enumerate(sels):
         batch = gather_batch(data, sel)
-        clean = seqpan_forward_fused(model, packed, batch, word_vectors)
+        clean = seqpan_forward_fused(model, packed, batch, word_vectors,
+                                     mxu_bf16)
         mc = _mc_passes(model, batch, word_vectors, mc_droprate,
                         _mc_generators(model, mc_droprate, sels.device, seed, i),
-                        clean)
+                        clean, mc_model)
         outs.append(_infer_outputs(clean, mc, batch))
     return _stack(outs)

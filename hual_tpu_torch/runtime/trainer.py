@@ -10,7 +10,11 @@ every ``train.save_state_every`` epochs for resume.  ``test()`` gives R@1
 and mIoU of a split; ``infer_trainset()`` writes the round pickle with the
 reference schema, which ``active.engine.update_labels`` reads.
 ``train.sweep_backend`` picks the eager model (``flax``) or K2 + K1
-(``fused``) for the sweeps, see ``runtime/steps.py``.
+(``fused``, with bf16 products in K2 under ``train.fused_mxu_bf16``) for the
+sweeps, see ``runtime/steps.py``.  ``model.compute_dtype`` is the eager
+model's activation dtype; ``train.mc_dtype``, when it differs, runs the
+stochastic MC passes on a view of the model at that dtype that shares its
+parameters (nothing is added to ``best.npz`` or ``state.pt``).
 
 Checkpoints are the port's own: the best params as the JAX package's flat
 ``params.npz`` dict (``weights.to_jax_params``) in ``<model_dir>/best.npz``,
@@ -18,16 +22,18 @@ which either package can load; the full state (params, optimizer moments,
 step, best R@1@0.7, epochs done) through ``torch.save``.  A resumed run
 replays the uninterrupted one: the shuffle is a function of the epoch and
 each step's generator of the global step.  On the card that replay is bit
-for bit only under ``torch.use_deterministic_algorithms(True)`` with
-``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set before cuBLAS starts.
+for bit only in deterministic mode (``runtime/debug.enable_deterministic``,
+the ``--deterministic`` flag of ``cli`` and ``orchestrate``).
 
 It runs on the card (``device="cuda"``) unless the caller passes
-``device="cpu"``; without a card it raises.  The options that raise
-NotImplementedError here are not ported yet (ROADMAP.md queue 1).
+``device="cpu"``; without a card it raises.  ``train.fold_mc`` and host
+streaming raise NotImplementedError: they are not ported yet (ROADMAP.md
+queue 1).
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from dataclasses import dataclass
@@ -79,11 +85,6 @@ class Trainer:
         tcfg = config.train
         if tcfg.fold_mc:
             raise _unported("train.fold_mc (folded MC-dropout passes)")
-        if tcfg.mc_dtype != config.model.compute_dtype:
-            raise _unported(f"train.mc_dtype={tcfg.mc_dtype!r} (a bf16 clone "
-                          "for the MC passes)")
-        if tcfg.fused_mxu_bf16:
-            raise _unported("train.fused_mxu_bf16 (bf16 products in K2)")
         if self.device.type == "cuda":
             apply_matmul_precision(config.model.matmul_precision)
         self.config = config
@@ -105,6 +106,9 @@ class Trainer:
         config.model.num_words = dataset["n_words"]
         self.model = get_model_class(config.model.name).from_config(config)
         self.model = self.model.to(self.device).eval()
+        # the stochastic MC passes' model (hual_tpu Trainer._mc_model)
+        self.mc_model = (None if tcfg.mc_dtype == config.model.compute_dtype
+                         else self.model.with_compute_dtype(tcfg.mc_dtype))
         self.word_vectors = torch.as_tensor(
             np.asarray(dataset["word_vector"], np.float32), device=self.device)
 
@@ -130,11 +134,15 @@ class Trainer:
         self._val_data = (self._device_data(self.val_set)
                           if self.val_set is not None else None)
         if tcfg.sweep_backend == "fused":
-            self._eval_sweep = steps.fused_eval_sweep
-            self._infer_sweep = steps.fused_infer_sweep
+            self._eval_sweep = functools.partial(
+                steps.fused_eval_sweep, mxu_bf16=tcfg.fused_mxu_bf16)
+            self._infer_sweep = functools.partial(
+                steps.fused_infer_sweep, mc_model=self.mc_model,
+                mxu_bf16=tcfg.fused_mxu_bf16)
         else:
             self._eval_sweep = steps.eval_sweep
-            self._infer_sweep = steps.infer_sweep
+            self._infer_sweep = functools.partial(steps.infer_sweep,
+                                                  mc_model=self.mc_model)
         # eval/infer index matrices depend only on the split and the batch
         # size: built and put on the device once
         self._sweep_cache: dict[str, tuple[Any, list, torch.Tensor, int]] = {}

@@ -48,6 +48,8 @@ def test_chip_smoke_widths_are_the_configs(task):
     assert Config.from_dict({"model": widths}).model == Config.load(path).model
 
 
-def test_bf16_compute_names_a_later_slice():
-    with pytest.raises(ValueError, match="a later slice"):
-        ModelConfig(compute_dtype="bf16")
+def test_bf16_compute_alias_is_accepted():
+    assert ModelConfig(compute_dtype="bf16").compute_dtype == "bfloat16"
+    assert (JaxConfig.from_dict({"model": {"compute_dtype": "bf16"}}).model
+            .compute_dtype == Config.from_dict(
+                {"model": {"compute_dtype": "bf16"}}).model.compute_dtype)

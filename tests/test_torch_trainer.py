@@ -179,8 +179,6 @@ def test_compressed_feature_tables(world, feature_dtype):
 
 @pytest.mark.parametrize("train,match", [
     ({"fold_mc": True}, "fold_mc"),
-    ({"mc_dtype": "bfloat16"}, "mc_dtype"),
-    ({"fused_mxu_bf16": True}, "fused_mxu_bf16"),
     ({"host_streaming": True}, "host streaming"),
     ({"hbm_budget_gb": 1e-9}, "host streaming"),
 ])

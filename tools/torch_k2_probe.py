@@ -77,7 +77,8 @@ def model_packed(T: int) -> PackedWeights:
 def bind(so: str):
     lib = ctypes.CDLL(so)
     lib.fused_forward_f32.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-                                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                                      + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_void_p])
     lib.fused_forward_workspace_floats.restype = ctypes.c_longlong
     lib.fused_forward_workspace_floats.argtypes = [ctypes.c_int] * 4
     return lib
@@ -91,7 +92,7 @@ def call(lib, packed, args, B, T, W):
     def run():
         rc = lib.fused_forward_f32(packed.buffer.data_ptr(), *[a.data_ptr() for a in args],
                                    *[o.data_ptr() for o in outs], ws.data_ptr(), B, T, W,
-                                   128, 8, 2, packed.max_pos, 0.3, 0,
+                                   128, 8, 2, packed.max_pos, 0.3, 0, 0,
                                    torch.cuda.current_stream().cuda_stream)
         assert rc == 0, f"CUDA error {rc}"
     return run, outs
