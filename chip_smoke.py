@@ -65,7 +65,27 @@ line; any failure exits non-zero before the last line:
    with deterministic algorithms on and off; (e) the MC sweep at
    ``mc_droprate`` 0.5 with both backends, and live gumbel passes on a
    subset;
-9. bf16_charades, K2's ``mxu_bf16`` path and the bf16 options: (a) K2 with
+9. streaming_charades, the Trainer's last options on the same dataset:
+   (a) the native loader: the 1,334 test-split videos written as raw
+   ``.npy`` files (their raw lengths, 24-120 clips x 1024 f32) and read by
+   ``FeatureStore.from_dir`` natively and through NumPy in turns, the tables
+   bit-equal (it fails if the library does not build or load); (b) in a
+   fresh deterministic process (``--streaming-worker``), on the resume
+   check's 512-query set, 2 epochs and ``infer_trainset()`` at
+   ``mc_droprate`` 0.5 resident against streamed, for an f32 table and an
+   int8 one (auto mode, the budget under the table): params, ``best.npz``
+   and the pickle bit-equal; (c) one epoch of the Train cell's 1,600
+   queries resident and streamed in turns, and one streamed int8 epoch:
+   ms a step, the upload's bytes and time a step, 20 streamed steps
+   profiled, K1 once a step and a test batch, K2 never, and the fused ->
+   flax warning; (d) the MC passes at ``mc_droprate`` 0.5 on 20 batches of
+   96, folded and sequential in turns: clean logits within rtol 1e-4 / atol
+   1e-5, spans equal or a printed near-tie, folded passes live; (e)
+   ``Predictor.from_trainer`` on (c)'s streamed trainer and
+   ``export_bundle(trainer)`` -> ``Predictor.from_bundle`` on 96 raw test
+   requests: equal spans and logits, spans equal to the trainer's eval
+   path;
+10. bf16_charades, K2's ``mxu_bf16`` path and the bf16 options: (a) K2 with
    bf16 products against its plain version in f64 without rounding, at
    (96,64,13), (32,100,30) and (3,17,5): (B) |x - f64| <= 0.05 + 0.03 *
    max|f64| on logits and <= max(0.05, 1.5 x the plain bf16 version's own
@@ -79,7 +99,7 @@ line; any failure exits non-zero before the last line:
    ``infer_trainset()`` at ``mc_droprate`` 0.5 with ``mc_dtype: bfloat16``
    over 20 batches of 96: clean outputs bit-equal to the f32 trainer's, MC
    logits finite and live;
-10. loop_charades: the AL loop (``hual_tpu_torch.orchestrate``, ``cli``,
+11. loop_charades: the AL loop (``hual_tpu_torch.orchestrate``, ``cli``,
    ``active``), in the build directory: (a) ``update_labels`` on the sweep
    pickle at Charades-STA size (12,408 records; 6,204 selected, one oracle
    point each, positive iff inside the GT index span); (b)
@@ -93,7 +113,7 @@ line; any failure exits non-zero before the last line:
    0.5565 (the same dataset), each round's pseudo-mIoU inside
    ``hual_tpu``'s and the reference's seed band, launches equal to the
    epochs' steps and batches;
-11. kernels: one entry per ported kernel (K2's bf16 path apart) with its
+12. kernels: one entry per ported kernel (K2's bf16 path apart) with its
    launches on the main paths and its check against the plain version; the
    seconds per phase.
 
@@ -121,14 +141,14 @@ import numpy as np
 import torch
 
 # imported before anything is printed: outside a checkout this fails at once
-from hual_tpu_torch import cli, orchestrate
+from hual_tpu_torch import cli, native, orchestrate
 from hual_tpu_torch.active.engine import update_labels
 from hual_tpu_torch.config import Config, apply_matmul_precision
 from hual_tpu_torch.data.datasets import gen_or_load_dataset
-from hual_tpu_torch.data.features import (FeatureStore,
+from hual_tpu_torch.data.features import (FeatureStore, quantize_features,
                                           visual_feature_sampling)
 from hual_tpu_torch.data.labels_device import make_span_labels_device
-from hual_tpu_torch.data.loader import EvalLoader
+from hual_tpu_torch.data.loader import EvalLoader, TrainLoader
 from hual_tpu_torch.data.vocab import PAD, UNK
 from hual_tpu_torch.models.seqpan import SeqPAN
 from hual_tpu_torch.ops import decode
@@ -139,8 +159,9 @@ from hual_tpu_torch.ops.kernels import fused_forward as k2
 from hual_tpu_torch.ops.kernels import span_decode as k1
 from hual_tpu_torch.ops.optim import make_optimizer
 from hual_tpu_torch.runtime import steps
+from hual_tpu_torch.runtime.debug import enable_deterministic
 from hual_tpu_torch.runtime.trainer import Trainer
-from hual_tpu_torch.serve import Predictor, export_bundle
+from hual_tpu_torch.serve import Predictor, export_bundle, export_model_bundle
 from hual_tpu_torch.utils.metrics import time_to_index_al
 from hual_tpu_torch.weights import _leaves, load_jax_params, to_jax_params
 
@@ -486,9 +507,9 @@ def write_bundle(path: str, model_cfg: dict, span_decode: str, text) -> str:
         num_words=len(word_dict))})
     model = SeqPAN.from_config(config,
                                generator=torch.Generator().manual_seed(SEED))
-    return export_bundle(model, path, config=config, word_dict=word_dict,
-                         char_dict=char_dict, word_vectors=word_vectors,
-                         max_wlen=MAX_WLEN, max_clen=MAX_CLEN)
+    return export_model_bundle(model, path, config=config, word_dict=word_dict,
+                               char_dict=char_dict, word_vectors=word_vectors,
+                               max_wlen=MAX_WLEN, max_clen=MAX_CLEN)
 
 
 def with_decode(src: str, dst: str, span_decode: str) -> str:
@@ -907,10 +928,9 @@ def sweep_phase(workdir: str, config, store, dataset) -> dict:
                          .index_iter())
             sels = torch.from_numpy(np.stack([sel for sel, _ in pairs])).to(DEVICE)
             sweep = steps.fused_infer_sweep if backend == "fused" else steps.infer_sweep
-            o = sweep(tr.model, data, sels, tr.word_vectors)
-            outs[split, backend] = {
-                k: np.concatenate([v.cpu().numpy()[i, :n] for i, (_, n) in enumerate(pairs)])
-                for k, v in o.items()}
+            o = sweep(tr.model, steps.resident_batches(data, sels, [n for _, n in pairs]),
+                      tr.word_vectors)
+            outs[split, backend] = {k: v.cpu().numpy() for k, v in o.items()}
         f, x = outs[split, "fused"], outs[split, "flax"]
         mask = (np.arange(CHARADES["max_vlen"])[None] < ds.v_len[:, None]).astype(np.int32)
         ties = near_ties([x["start_logits"], x["end_logits"]], mask,
@@ -1050,13 +1070,9 @@ RESUME_DATA = dict(n_train=512, n_test=192, vdim=CHARADES["vdim"], max_raw_len=1
                    min_raw_len=24, seed=SEED % 997)
 
 
-def resume_check(workdir: str) -> dict:
-    """A resume through ``cli.main(["--deterministic", ...])`` in a fresh
-    process (``--resume-worker``), where deterministic mode starts before
-    CUDA does, as for a user: 2 epochs uninterrupted, 2 epochs stopped after
-    epoch 0 and resumed from ``state.pt``; final params, best R@1@0.7 and
-    best checkpoint must be bit-equal.  The worker also times a train step
-    with deterministic algorithms on and off."""
+def resume_set(workdir: str) -> str:
+    """Write the resume check's set and its ``SeqPAN.yaml`` under
+    ``workdir/resume``; returns that directory."""
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     from make_synthetic_data import make_dataset
 
@@ -1072,6 +1088,17 @@ def resume_check(workdir: str) -> dict:
         "train": dict(TRAIN, sweep_backend="fused", save_state_every=1),
         "model": dict(CHARADES, span_decode="pallas")}).save(
             os.path.join(root, "SeqPAN.yaml"))
+    return root
+
+
+def resume_check(workdir: str) -> dict:
+    """A resume through ``cli.main(["--deterministic", ...])`` in a fresh
+    process (``--resume-worker``), where deterministic mode starts before
+    CUDA does, as for a user: 2 epochs uninterrupted, 2 epochs stopped after
+    epoch 0 and resumed from ``state.pt``; final params, best R@1@0.7 and
+    best checkpoint must be bit-equal.  The worker also times a train step
+    with deterministic algorithms on and off."""
+    root = resume_set(workdir)
     env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--resume-worker",
@@ -1199,12 +1226,13 @@ def mc_sweeps(workdir: str, config, dataset, store, table, flat) -> dict:
               f"mc sweep {backend}: launches {launches} for {n} batches")
         sweep = steps.fused_infer_sweep if backend == "fused" else steps.infer_sweep
         part = sels[:8]
-        clean = sweep(tr.model, tr._train_data, part, tr.word_vectors)
-        live = sweep(tr.model, tr._train_data, part, tr.word_vectors, 0.5, cfg.train.seed)
+        clean = sweep(tr.model, steps.resident_batches(tr._train_data, part), tr.word_vectors)
+        live = sweep(tr.model, steps.resident_batches(tr._train_data, part), tr.word_vectors,
+                     0.5, cfg.train.seed)
         for k in ("start_logits", "end_logits", "match_scores", "start_index", "end_index"):
             check(torch.equal(live[k], clean[k]), f"mc sweep {backend}: the clean {k} moved")
         valid = (torch.arange(CHARADES["max_vlen"], device=DEVICE)
-                 < tr._train_data["v_len"][part.reshape(-1)][:, None]).reshape(*part.shape, -1)
+                 < tr._train_data["v_len"][part.reshape(-1)][:, None])
         share = {f"{a}_vs_{b}": float((live[a][valid] != live[b][valid]).float().mean())
                  for a, b in (("start_logits1", "start_logits"),
                               ("start_logits1", "start_logits2"),
@@ -1222,8 +1250,8 @@ def mc_sweeps(workdir: str, config, dataset, store, table, flat) -> dict:
     tr.load_params(flat)
     pairs, sels = tr._sweep_sels("infer", tr.train_set, cfg.infer_batch_size)
     reset_launches()
-    live = steps.fused_infer_sweep(tr.model, tr._train_data, sels, tr.word_vectors,
-                                   0.0, cfg.train.seed)
+    live = steps.fused_infer_sweep(tr.model, steps.resident_batches(tr._train_data, sels),
+                                   tr.word_vectors, 0.0, cfg.train.seed)
     check(k2.fused_forward.launches == k1.span_decode.launches == len(pairs),
           "gumbel sweep launches")
     gumbel = {"queries": GUMBEL_QUERIES, "batches": len(pairs),
@@ -1351,6 +1379,393 @@ def train_phase(workdir: str, config, store, dataset, table) -> dict:
 
 
 # -- phase 9 ------------------------------------------------------------------
+FOLD_BATCHES = 20
+
+
+class Captured(logging.Handler):
+    """Keeps the records logged through it."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.records: list[logging.LogRecord] = []
+
+    def emit(self, record: logging.LogRecord) -> None:
+        self.records.append(record)
+
+
+def native_loader(workdir: str, dataset) -> dict:
+    """(a) The Sweep dataset's 1,334 test-split videos as raw .npy files
+    (their raw lengths, 24-120 clips x 1024 f32, seeded values), read by
+    FeatureStore.from_dir through the native loader and through NumPy, in
+    turns native, NumPy, NumPy, native: the tables bit-equal."""
+    feat_dir = os.path.join(workdir, "sweep", "data", "features", "charades_i3d")
+    with open(os.path.join(feat_dir, "feature_shapes.json")) as f:
+        shapes = json.load(f)
+    raw_dir = os.path.join(workdir, "raw_test")
+    os.makedirs(raw_dir)
+    rng = np.random.default_rng(SEED + 7)
+    vids = sorted({r["vid"] for r in dataset["test_set"]})
+    for vid in vids:
+        np.save(os.path.join(raw_dir, f"{vid}.npy"),
+                rng.standard_normal((shapes[vid], CHARADES["vdim"]), dtype=np.float32))
+    check(native.get_lib() is not None,
+          f"the native npy loader did not build or load: {native.error()}")
+    seconds: dict[str, list] = {"native": [], "numpy": []}
+    stores = {}
+    for mode in ("native", "numpy", "numpy", "native"):
+        t0 = time.perf_counter()
+        stores[mode] = FeatureStore.from_dir(raw_dir, CHARADES["max_vlen"],
+                                             use_native=mode == "native")
+        seconds[mode].append(time.perf_counter() - t0)
+    a, b = stores["native"], stores["numpy"]
+    differ = int((a.packed != b.packed).sum())
+    check(a.vid_index == b.vid_index and np.array_equal(a.lengths, b.lengths)
+          and differ == 0, f"native loader: {differ} values differ from NumPy's")
+    raw_bytes = sum(os.path.getsize(os.path.join(raw_dir, f"{v}.npy")) for v in vids)
+    shutil.rmtree(raw_dir)
+    return {"videos": len(vids), "raw_bytes": raw_bytes,
+            "table_shape": list(a.packed.shape), "bit_equal": True,
+            "downsampled": int((np.array([shapes[v] for v in vids])
+                                > CHARADES["max_vlen"]).sum()),
+            "seconds_in_turns": seconds,
+            "library": str(native.library_path().relative_to(ROOT))}
+
+
+def replay_check(workdir: str) -> dict:
+    """(b) Streamed against resident training in a fresh deterministic
+    process (``--streaming-worker``) on the resume check's 512-query set."""
+    root = os.path.join(workdir, "resume")
+    env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--streaming-worker", root],
+                          capture_output=True, text=True, env=env, timeout=600)
+    check(proc.returncode == 0, f"streaming worker exited {proc.returncode}:\n"
+                                f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    return {**out, "seconds_process": time.perf_counter() - t0}
+
+
+# the replay's four runs: name, feature dtype, train.host_streaming (None:
+# auto, with train.hbm_budget_gb set to half the table)
+REPLAY_RUNS = (("f32_resident", "float32", False), ("f32_streamed", "float32", True),
+               ("int8_resident", "int8", False), ("int8_auto", "int8", None))
+
+
+def streaming_worker(root: str) -> None:
+    """The replay's process: deterministic mode before CUDA starts, then 2
+    epochs from one init and ``infer_trainset()`` at mc_droprate 0.5 (flax
+    sweeps) for each of REPLAY_RUNS through ``cli.build_trainer``; the
+    streamed runs must equal the resident ones bit for bit (params,
+    best.npz, pickle).  Prints one JSON line."""
+    enable_deterministic()
+    os.chdir(root)
+    base = Config.load("SeqPAN.yaml")
+    shared: dict = {}
+    runs, out = {}, {}
+    for name, dtype, hs in REPLAY_RUNS:
+        cfg = copy.deepcopy(base)
+        cfg.suffix, cfg.model.feature_dtype = name, dtype
+        cfg.train.seed, cfg.train.save_state_every = SEED, 0
+        cfg.train.sweep_backend, cfg.train.mc_droprate = "flax", 0.5
+        cfg.train.host_streaming = hs
+        if hs is None:
+            packed = shared["features"].packed
+            cfg.train.hbm_budget_gb = packed.size / 1e9 / 2      # int8: 1 byte
+        tr = cli.build_trainer(cfg, features=shared.get("features"),
+                               base_dataset=shared.get("dataset"), device=DEVICE)
+        shared.update(features=tr.features, dataset=tr.dataset)
+        check(tr.host_streaming == (hs is not False)
+              and (tr.export_device_features() is None) == tr.host_streaming,
+              f"replay {name}: host_streaming {tr.host_streaming}")
+        tr.init_state(SEED)
+        t0 = time.perf_counter()
+        best = tr.train()
+        train_s = time.perf_counter() - t0
+        pkl = os.path.join("results", f"{name}.pkl")
+        tr.infer_trainset(save_path=pkl)
+        with np.load(os.path.join(cfg.model_dir(), "best.npz")) as f:
+            best_npz = dict(f)
+        with open(pkl, "rb") as f:
+            rows = pickle.load(f)
+        runs[name] = (tr.model.state_dict(), best_npz, rows)
+        out[name] = {"host_streaming": tr.host_streaming, "train_s": train_s,
+                     "steps": tr.state.step, "best_r1i7": best["r1i7"],
+                     "best_epoch": best["epoch"]}
+        tr.close()
+    check(native.get_lib() is not None, "replay: the native loader was not used")
+    for a, b in (("f32_resident", "f32_streamed"), ("int8_resident", "int8_auto")):
+        pa, ba, ra = runs[a]
+        pb, bb, rb = runs[b]
+        params = all(torch.equal(pa[k], pb[k]) for k in pa)
+        best = ba.keys() == bb.keys() and all(np.array_equal(ba[k], bb[k]) for k in ba)
+        rows = len(ra) == len(rb) and all(_same_row(x, y) for x, y in zip(ra, rb))
+        check(params and best and rows, f"replay {b} vs {a}: params equal {params}, "
+                                        f"best.npz equal {best}, pickle equal {rows}")
+    emit({"queries": len(shared["dataset"]["train_set"]), "epochs": base.train.epochs,
+          "runs": out, "bit_equal": True, "pickles_equal": True,
+          "deterministic": "runtime.debug.enable_deterministic() before CUDA started",
+          "auto_budget_gb": shared["features"].packed.size / 1e9 / 2})
+
+
+def _same_row(a: dict, b: dict) -> bool:
+    if list(a) != list(b):
+        return False
+    for k, v in a.items():
+        if k in ("prop_logits", "prop_logits1", "prop_logits2"):
+            if not all(np.array_equal(x, y) for x, y in zip(v, b[k])):
+                return False
+        elif k == "m_score":
+            if not np.array_equal(v, b[k]):
+                return False
+        elif v != b[k]:
+            return False
+    return True
+
+
+def upload_bytes(tr: Trainer, sel: np.ndarray) -> dict:
+    """Host-to-device bytes of one streamed train batch, by array."""
+    host = tr.train_set.gather(sel, with_labels=False)
+    out = {"float32": {k: int(v.nbytes) for k, v in host.items()}}
+    q, scales = quantize_features(host["video_features"])
+    out["int8"] = dict(out["float32"], video_features=int(q.nbytes),
+                       feature_scales=int(scales.nbytes))
+    return {k: {"total": sum(v.values()), **v} for k, v in out.items()}
+
+
+def streamed_epochs(workdir: str, config, store, dataset, table) -> tuple[dict, object]:
+    """(c) One epoch each of the Train cell's 1,600 queries, resident and
+    streamed in turns (resident, streamed, streamed, resident; f32, fused
+    sweeps asked for), then one streamed int8 epoch; the upload's bytes and
+    time, and a profile of 20 streamed steps.  Returns the record and the
+    streamed f32 trainer."""
+    sub = dict(dataset, train_set=dataset["train_set"][:TRAIN_QUERIES])
+    log = logging.getLogger("chip_smoke.streaming")
+    captured = Captured()
+    log.addHandler(captured)
+    trainers = {}
+    for name, hs, dtype in (("resident", False, "float32"), ("streamed", True, "float32"),
+                            ("streamed_int8", True, "int8")):
+        cfg = train_config(config, os.path.join(workdir, f"ckpt_{name}"), epochs=1,
+                           host_streaming=hs)
+        cfg.suffix, cfg.model.feature_dtype = name, dtype
+        trainers[name] = Trainer(cfg, sub, store, logger=log,
+                                 device_features=table if dtype == "float32" else None,
+                                 device=DEVICE)
+    log.removeHandler(captured)
+    warnings = [r.getMessage() for r in captured.records if r.levelno == logging.WARNING]
+    check(len(warnings) == 2 and all("using the flax sweep backend instead" in w
+                                     for w in warnings),
+          f"streaming: the fused -> flax warning was not logged twice: {warnings}")
+    check(trainers["streamed"].export_device_features() is None
+          and trainers["resident"].export_device_features()[0] is table[0],
+          "streaming: residency")
+    n_steps = math.ceil(TRAIN_QUERIES / TRAIN["batch_size"])
+    n_test = math.ceil(len(dataset["test_set"]) / config.eval_batch_size)
+    epochs: dict[str, list] = {"resident": [], "streamed": [], "streamed_int8": []}
+    main_k1 = 0
+    here = os.getcwd()
+    os.chdir(workdir)                        # train() writes ./logs/<task>/
+    try:
+        for name in ("resident", "streamed", "streamed", "resident", "streamed_int8"):
+            tr = trainers[name]
+            tr.init_state()
+            reset_launches()                 # main path starts (streamed runs)
+            t0 = time.perf_counter()
+            tr.train()
+            seconds = time.perf_counter() - t0
+            launches = launch_counts()       # main path ends
+            streamed = name != "resident"
+            if streamed:
+                main_k1 += launches["span_decode"]
+            check(launches["span_decode"] == n_steps + n_test
+                  and launches["fused_forward"] == (0 if streamed else n_test),
+                  f"streaming {name}: launches {launches} for {n_steps} steps and "
+                  f"{n_test} test batches")
+            wall = tr.last_epoch_wall
+            epochs[name].append({"step_ms": wall["train_s"] * 1e3 / n_steps,
+                                 "train_s": wall["train_s"], "eval_s": wall["eval_s"],
+                                 "seconds": seconds, "launches": launches})
+            tr.close()
+    finally:
+        os.chdir(here)
+
+    # the upload alone, and 20 streamed steps on the host clock and profiled
+    tr = trainers["streamed"]
+    loader_sels = [s for s in TrainLoader(tr.train_set, TRAIN["batch_size"],
+                                          seed=tr.config.train.seed).index_iter(0)]
+    nbytes = upload_bytes(tr, loader_sels[0])
+    upload_ms = []
+    for sel in loader_sels[:PROFILE_STEPS]:
+        host = tr.train_set.gather(sel, with_labels=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps.upload_batch(host, DEVICE, with_labels=True)
+        torch.cuda.synchronize()
+        upload_ms.append((time.perf_counter() - t0) * 1e3)
+    stream = tr._stream(tr.train_set, ((s, len(s)) for s in loader_sels),
+                        with_labels=True)
+    count = iter(range(10 ** 6))
+
+    def one_step():
+        batch, _ = next(stream)
+        steps.train_step(tr.model, tr.state.opt, batch, tr.word_vectors, TRAIN["lr"],
+                         steps.make_generator(DEVICE, SEED, next(count)),
+                         drop_rate=TRAIN["droprate"])
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PROFILE_STEPS):
+        one_step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+    profile = device_profile(one_step, calls=PROFILE_STEPS, top=8, match="span_decode")
+    stream.close()   # left after 2 x PROFILE_STEPS batches: ends its prefetch thread
+    step_median = statistics.median(e["step_ms"] for e in epochs["streamed"])
+    return {"queries": TRAIN_QUERIES, "steps_per_epoch": n_steps,
+            "test_batches_per_epoch": n_test, "epochs_in_turns": epochs,
+            "fallback_warnings": warnings,
+            "upload_bytes_per_step": nbytes,
+            "upload_ms_median": statistics.median(upload_ms),
+            "upload_share_of_streamed_step": statistics.median(upload_ms) / step_median,
+            "streamed_step_ms_host_clock_20": step_ms,
+            "profile_streamed_step": profile, "k1_main_path": main_k1}, tr
+
+
+def fold_mc_check(workdir: str, config, store, dataset, table, flat) -> dict:
+    """(d) The MC passes at mc_droprate 0.5 on the eager (flax) sweep over
+    FOLD_BATCHES batches of 96, folded and sequential in turns (sequential,
+    folded, folded, sequential, twice), on the train phase's weights."""
+    sub = dict(dataset, train_set=dataset["train_set"][:FOLD_BATCHES * 96])
+    trainers = {}
+    for fold in (False, True):
+        cfg = train_config(config, "", sweep_backend="flax", mc_droprate=0.5,
+                           fold_mc=fold)
+        trainers[fold] = Trainer(cfg, sub, store,
+                                 logger=logging.getLogger("chip_smoke.fold_mc"),
+                                 device_features=table, device=DEVICE)
+        trainers[fold].load_params(flat)
+    seconds: dict[str, list] = {"sequential": [], "folded": []}
+    rows, main_k1 = {}, 0
+    for fold in (False, True, True, False) * 2:
+        name = "folded" if fold else "sequential"
+        path = os.path.join(workdir, f"fold_{name}.pkl")
+        reset_launches()                     # main path starts (folded runs)
+        t0 = time.perf_counter()
+        trainers[fold].infer_trainset(save_path=path)
+        seconds[name].append(time.perf_counter() - t0)
+        launches = launch_counts()           # main path ends
+        check(launches == {"span_decode": FOLD_BATCHES, "fused_forward": 0,
+                           "fused_forward_bf16": 0},
+              f"fold_mc {name}: launches {launches}")
+        main_k1 += launches["span_decode"] if fold else 0
+        if name not in rows:
+            with open(path, "rb") as fh:
+                rows[name] = pickle.load(fh)
+    # the sweep alone (no pickle), in turns: the passes' own cost
+    sweep_s: dict[str, list] = {"sequential": [], "folded": []}
+    for fold in (False, True, True, False) * 2:
+        tr = trainers[fold]
+        _, sels = tr._sweep_sels("infer", tr.train_set, tr.config.infer_batch_size)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = steps.infer_sweep(tr.model, steps.resident_batches(tr._train_data, sels),
+                                tr.word_vectors, 0.5, tr.config.train.seed, fold_mc=fold)
+        out["start_logits"].cpu()
+        sweep_s["folded" if fold else "sequential"].append(time.perf_counter() - t0)
+    seq, fol = rows["sequential"], rows["folded"]
+    x = np.concatenate([np.stack(r["prop_logits"]).ravel() for r in seq])
+    y = np.concatenate([np.stack(r["prop_logits"]).ravel() for r in fol])
+    of_bound = np.abs(y - x) / (1e-5 + 1e-4 * np.abs(x))
+    err = float(of_bound.max())
+    worst = int(of_bound.argmax())
+    check(err <= 1.0, f"fold_mc: clean logits at {err} of rtol 1e-4 / atol 1e-5 "
+                      f"(sequential {x[worst]}, folded {y[worst]})")
+    T = CHARADES["max_vlen"]
+    mask = (np.arange(T)[None] < np.array([r["v_len"] for r in seq])[:, None]).astype(np.int32)
+    ties = near_ties([np.stack([r["prop_logits"][0] for r in seq]),
+                      np.stack([r["prop_logits"][1] for r in seq])], mask,
+                     np.array([r["prop_idx"] for r in seq]),
+                     np.array([r["prop_idx"] for r in fol]))
+    live = {}
+    for a, b, key in (("prop_logits1", "prop_logits", "mc1_vs_clean"),
+                      ("prop_logits1", "prop_logits2", "mc1_vs_mc2"),
+                      ("prop_logits2", "prop_logits", "mc2_vs_clean")):
+        live[key] = float(np.mean([(r[a][0] != r[b][0])[:r["v_len"]].mean() for r in fol]))
+    check(min(live.values()) > 0.9, f"fold_mc: passes not live: {live}")
+    m_err = max(float(np.abs(a["m_score"] - b["m_score"]).max()) for a, b in zip(seq, fol))
+    return {"batches": FOLD_BATCHES, "queries": len(seq), "seconds_in_turns": seconds,
+            "sweep_seconds_in_turns": sweep_s,
+            "clean_logits_err_of_bound": err,
+            "clean_logits_worst": {"sequential": float(x[worst]), "folded": float(y[worst])},
+            "clean_logits_max_abs_diff": float(np.abs(y - x).max()),
+            "clean_logits_equal_share": float((x == y).mean()),
+            "clean_logits_over_half_bound": int((of_bound > 0.5).sum()),
+            "match_scores_max_abs_diff": m_err,
+            "indices_differ": len(ties), "near_ties": ties,
+            "folded_logits_differ_share": live, "k1_main_path": main_k1}
+
+
+def serve_from_trainer(workdir: str, tr: Trainer) -> dict:
+    """(e) ``Predictor.from_trainer`` on the streamed trainer and
+    ``export_bundle(trainer)`` -> ``Predictor.from_bundle``, on the first 96
+    test samples as raw requests: spans and logits equal to each other,
+    spans equal to the trainer's eval path on the same samples."""
+    n = 96
+    with open(tr.config.paths.test_path) as f:
+        records = json.load(f)[:n]
+    requests = []
+    for i, (vid, duration, _, sentence) in enumerate(records):
+        check(tr.test_set.records[i]["vid"] == vid, "serve: test split order")
+        row = tr.features.vid_index[vid]
+        requests.append((tr.features.packed[row, :tr.features.lengths[row]],
+                         duration, sentence))
+    reset_launches()                         # main path starts
+    pred = Predictor.from_trainer(tr, batch_size=n)
+    got = pred.predict_batch(requests)
+    bundle = Predictor.from_bundle(export_bundle(tr, os.path.join(workdir, "trainer_bundle")),
+                                   batch_size=n, device=DEVICE)
+    again = bundle.predict_batch(requests)
+    launches = launch_counts()               # main path ends
+    check(launches == {"span_decode": 2, "fused_forward": 0, "fused_forward_bf16": 0},
+          f"serve from trainer: launches {launches}")
+    host = pred.encode_batch(requests)
+    logits = [forward_logits(p, host) for p in (pred, bundle)]
+    check(got == again and all(torch.equal(a, b) for a, b in zip(*logits)),
+          "serve: from_trainer and the exported bundle disagree")
+    out = steps.eval_step(tr.model, steps.upload_batch(
+        tr.test_set.gather(np.arange(n), with_labels=False), DEVICE), tr.word_vectors)
+    spans = np.stack([out["start_index"].cpu().numpy(), out["end_index"].cpu().numpy()], 1)
+    check(spans.tolist() == [[r["start_index"], r["end_index"]] for r in got],
+          "serve: from_trainer's spans differ from the trainer's eval path")
+    return {"requests": n, "spans_equal_eval_path": True,
+            "bundle_equal_from_trainer": True, "k1_main_path": launches["span_decode"]}
+
+
+def streaming_phase(workdir: str, config, store, dataset, table, flat) -> dict:
+    """Phase 9; returns K1's launches on the phase's main paths."""
+    t0 = time.perf_counter()
+    loader = native_loader(workdir, dataset)
+    replay = replay_check(workdir)
+    epochs, streamed = streamed_epochs(workdir, config, store, dataset, table)
+    fold = fold_mc_check(workdir, config, store, dataset, table, flat)
+    serving = serve_from_trainer(workdir, streamed)
+    emit({"streaming_charades": {
+        "card": CARD[0], "native_loader": loader, "replay": replay, "train": epochs,
+        "fold_mc": fold, "serve_from_trainer": serving,
+        "reduced": {"train": f"12,408 queries -> {TRAIN_QUERIES}, 50 epochs -> 1 a run",
+                    "fold_mc": f"12,408 queries -> {FOLD_BATCHES * 96}",
+                    "replay": f"{RESUME_DATA['n_train']} queries, 2 epochs"},
+        "seconds": time.perf_counter() - t0,
+        "timing": "seconds: host clock; step_ms: an epoch's train seconds over its "
+                  "steps (one fetch at the epoch's end); upload_ms: one batch's "
+                  "synchronous upload with labels, between synchronizes; the "
+                  "resident and streamed epochs run in turns"}})
+    return {"streaming": epochs["k1_main_path"], "fold_mc": fold["k1_main_path"],
+            "serve_from_trainer": serving["k1_main_path"]}
+
+
+# -- phase 10 -----------------------------------------------------------------
 BF16_MC_BATCHES = 20
 
 
@@ -1586,7 +2001,7 @@ def bf16_mc(workdir: str, config, store, dataset, table, flat) -> dict:
 
 def bf16_phase(workdir: str, config, store, dataset, table, f32_train: dict,
                W: int, resources: dict) -> tuple[dict, int, dict]:
-    """Phase 9; returns K2 bf16's main-shape row and launches, and the K1
+    """Phase 10; returns K2 bf16's main-shape row and launches, and the K1
     and K2 f32 launches of the bf16 options' runs."""
     k2_row = k2_bf16_check(W, resources)
     sweep = bf16_sweep(workdir, config, store, dataset, table)
@@ -1606,7 +2021,7 @@ def bf16_phase(workdir: str, config, store, dataset, table, f32_train: dict,
         for k in ("span_decode", "fused_forward")}
 
 
-# -- phase 10 -----------------------------------------------------------------
+# -- phase 11 -----------------------------------------------------------------
 # tools/synthetic_quality_comparison.py:260-261 and its schedule: 15 epochs,
 # re0 + 2 rounds, mc_droprate 0, train seed 12345
 QUALITY_DATA = dict(n_train=600, n_test=300, vdim=128, max_raw_len=64, seed=31)
@@ -1832,7 +2247,7 @@ def quality_loop(workdir: str) -> dict:
 
 
 def loop_phase(workdir: str, config, warm: dict) -> dict:
-    """Phase 9; returns the loop's launch counts."""
+    """Phase 11; returns the loop's launch counts."""
     data = loop_tree(workdir, config)
     full = full_width_round(workdir, config, data, warm)
     quality = quality_loop(workdir)
@@ -1849,6 +2264,9 @@ def loop_phase(workdir: str, config, warm: dict) -> dict:
 def main(argv: list[str]) -> None:
     if argv[:1] == ["--resume-worker"]:
         resume_worker(argv[1])
+        return
+    if argv[:1] == ["--streaming-worker"]:
+        streaming_worker(argv[1])
         return
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: FAILED: torch.cuda.is_available() is false")
@@ -1878,6 +2296,8 @@ def main(argv: list[str]) -> None:
                                       store, dataset)
         train_launches, warm, f32_train = timed("train_charades", train_phase, workdir,
                                                 config, store, dataset, table)
+        streaming_launches = timed("streaming_charades", streaming_phase, workdir,
+                                   config, store, dataset, table, f32_train["flat"])
         bf16_main, bf16_launches, bf16_options = timed(
             "bf16_charades", bf16_phase, workdir, config, store, dataset, table,
             f32_train, dataset["max_wlen"], resources)
@@ -1890,14 +2310,16 @@ def main(argv: list[str]) -> None:
         "launches": (serve_launches + sweep_launches["span_decode"]
                      + train_launches["train"]["span_decode"]
                      + train_launches["mc_sweep_fused"]["span_decode"]
-                     + bf16_options["span_decode"] + loop_launches["span_decode"]),
+                     + bf16_options["span_decode"] + loop_launches["span_decode"]
+                     + sum(streaming_launches.values())),
         "launches_by_path": {"serve": serve_launches,
                              "sweep_fused": sweep_launches["span_decode"],
                              "train": train_launches["train"]["span_decode"],
                              "mc_sweep_fused":
                                  train_launches["mc_sweep_fused"]["span_decode"],
                              "bf16_options": bf16_options["span_decode"],
-                             "loop": loop_launches["span_decode"]},
+                             "loop": loop_launches["span_decode"],
+                             **streaming_launches},
         "max_abs_err": k1_main["max_abs_err"],
         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],

@@ -3,16 +3,20 @@
 Per-clip visual features (one ``.npy`` per video) are loaded into RAM,
 videos longer than ``max_vlen`` are mean-pooled down to ``max_vlen`` clips,
 and the store packs them into one zero-padded (num_videos, max_vlen, vdim)
-table.  The JAX package's multithreaded C++ loader is not ported yet:
-``FeatureStore.from_dir`` takes the NumPy path.
+table.  ``FeatureStore.from_dir`` reads a directory with the multithreaded
+C++ loader (``hual_tpu_torch/native``) by default, and with NumPy for any
+file the loader cannot parse, or for all of them if it cannot be built.
 """
 
 from __future__ import annotations
 
 import glob
+import logging
 import os
 
 import numpy as np
+
+_log = logging.getLogger(__name__)
 
 
 def visual_feature_sampling(feature: np.ndarray, max_num_clips: int) -> np.ndarray:
@@ -95,9 +99,46 @@ class FeatureStore:
             self.vid_index[vid] = i
 
     @classmethod
-    def from_dir(cls, root: str, max_vlen: int) -> "FeatureStore":
-        """The packed store of a feature directory, through NumPy."""
+    def from_dir(cls, root: str, max_vlen: int,
+                 use_native: bool = True) -> "FeatureStore":
+        """The packed store of a feature directory.
+
+        ``use_native``: the C++ loader parses, downsamples and packs every
+        ``.npy`` file straight into the table; a file it cannot parse
+        (nonzero status) is read by NumPy.  If the loader cannot be built or
+        loaded, a warning names the cause and NumPy reads every file.
+        """
+        filenames = sorted(glob.glob(os.path.join(root, "*.npy")))
+        if use_native and filenames:
+            from hual_tpu_torch import native
+
+            vdim = int(np.load(filenames[0], mmap_mode="r").shape[1])
+            res = native.load_npy_batch(filenames, max_vlen, vdim)
+            if res is not None:
+                return cls._from_native(filenames, max_vlen, *res)
+            _log.warning("reading %d feature files with NumPy: the native "
+                         "loader is unavailable (%s)", len(filenames),
+                         native.error())
         return cls(load_video_features(root, max_vlen), max_vlen)
+
+    @classmethod
+    def _from_native(cls, filenames: list[str], max_vlen: int,
+                     packed: np.ndarray, lengths: np.ndarray,
+                     statuses: np.ndarray) -> "FeatureStore":
+        store = cls.__new__(cls)
+        store.max_vlen = max_vlen
+        store.packed = packed
+        store.lengths = lengths.astype(np.int32)
+        store.vid_index = {}
+        for i, fn in enumerate(filenames):
+            store.vid_index[os.path.basename(fn).rsplit(".", 1)[0]] = i
+            if statuses[i] != 0:        # a format the loader does not parse
+                feat = visual_feature_sampling(np.load(fn), max_vlen)
+                n = min(feat.shape[0], max_vlen)
+                store.packed[i, :n] = feat[:n]
+                store.packed[i, n:] = 0
+                store.lengths[i] = n
+        return store
 
     def rows(self, vids: list[str]) -> np.ndarray:
         return np.asarray([self.vid_index[v] for v in vids], dtype=np.int32)

@@ -20,26 +20,43 @@ from hual_tpu_torch.data.labels import make_span_labels
 
 def prefetch(iterator: Iterable, depth: int = 2) -> Iterator:
     """Run an iterator on a background thread with a bounded queue;
-    exceptions of the producer re-raise at the consumer."""
+    exceptions of the producer re-raise at the consumer.  Closing the
+    returned generator (or dropping it) stops the producer at its next
+    item, so an abandoned stream ends its thread."""
     q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
     _END, _ERR = object(), object()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                pass
+        return False
 
     def producer():
         try:
             for item in iterator:
-                q.put(item)
-            q.put(_END)
+                if not put(item):
+                    return
+            put(_END)
         except BaseException as e:  # noqa: BLE001 - re-raised on the consumer side
-            q.put((_ERR, e))
+            put((_ERR, e))
 
-    threading.Thread(target=producer, daemon=True).start()
-    while True:
-        item = q.get()
-        if item is _END:
-            return
-        if isinstance(item, tuple) and len(item) == 2 and item[0] is _ERR:
-            raise item[1]
-        yield item
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is _END:
+                return
+            if isinstance(item, tuple) and len(item) == 2 and item[0] is _ERR:
+                raise item[1]
+            yield item
+    finally:
+        stop.set()
 
 
 class PackedDataset:

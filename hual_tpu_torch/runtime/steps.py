@@ -4,7 +4,12 @@
 The split lives on the device (``Trainer``): the feature table plus the
 per-sample columns.  A step gathers its batch on the device from an index
 vector; the JAX package's ``lax.scan`` over batches is a Python loop here,
-and outputs stay on the device until the caller fetches them.
+and outputs stay on the device until the caller fetches them.  Under host
+streaming a step takes a host batch instead: ``upload_batch`` puts it on
+the device (labels built there, as ``gather_batch`` builds them).  The
+loops take their batches from an iterator, so one loop serves both:
+``train_batches`` (labelled device batches) and the sweeps ((device batch,
+n_valid) pairs, ``resident_batches`` or the Trainer's host stream).
 
 * Train step: labels built on the device, SeqPAN at the train drop rate,
   loc + match + align losses, BERT-AdamW (``ops/optim.py``), the span decode
@@ -20,9 +25,16 @@ and outputs stay on the device until the caller fetches them.
 
 MC passes: the clean pass is deterministic; the two stochastic passes run
 the eager model at ``mc_droprate``, each with its own generator, and do not
-decode.  ``mc_model`` (``train.mc_dtype``: the model at another activation
-dtype, sharing its parameters) runs the stochastic passes only; the clean
-pass always runs the main model.  Reuse rule: at ``mc_droprate`` 0 with the
+decode.  ``fold_mc`` (``train.fold_mc``, eager sweeps only) runs the three
+passes as one forward over the batch repeated three times, with the
+per-sample rates ``[0]*B + [mc]*2B`` and the batch's first generator: the
+rate-0 rows are the clean pass (up to the summation order of the larger
+products), decoded with the others; it folds only at a nonzero
+``mc_droprate`` with the gumbel head off and no ``mc_model``, since gumbel
+noise would reach the clean rows and the folded forward is one model.
+``mc_model`` (``train.mc_dtype``: the model at another activation dtype,
+sharing its parameters) runs the stochastic passes only; the clean pass
+always runs the main model.  Reuse rule: at ``mc_droprate`` 0 with the
 gumbel head off nothing is stochastic, so both "stochastic" passes are the
 clean pass.
 
@@ -100,11 +112,25 @@ def gather_batch(data: dict, sel: torch.Tensor, with_labels: bool = False) -> di
     batch.update(video_seq_len=take("v_len"), word_ids=take("word_ids"),
                  char_ids=take("char_ids"), s_ind=take("s_ind"),
                  e_ind=take("e_ind"), duration=take("duration"))
-    if with_labels:
-        y1, y2, match, inner = make_span_labels_device(
-            batch["s_ind"], batch["e_ind"], batch["video_seq_len"],
-            data["features"].shape[1])
-        batch.update(y1=y1, y2=y2, match_labels=match, inner_labels=inner)
+    return _with_labels(batch) if with_labels else batch
+
+
+def upload_batch(host: dict, device: torch.device,
+                 with_labels: bool = False) -> dict:
+    """A host batch (``PackedDataset.gather(..., with_labels=False)``, its
+    features f32, or int8 with ``feature_scales``) on ``device``: one
+    synchronous copy per array; ``with_labels`` builds the labels on the
+    device, as :func:`gather_batch` does.  Dequantization is the step's
+    (``dequantize_batch``)."""
+    batch = {k: torch.from_numpy(v).to(device, copy=True) for k, v in host.items()}
+    return _with_labels(batch) if with_labels else batch
+
+
+def _with_labels(batch: dict) -> dict:
+    y1, y2, match, inner = make_span_labels_device(
+        batch["s_ind"], batch["e_ind"], batch["video_seq_len"],
+        batch["video_features"].shape[1])
+    batch.update(y1=y1, y2=y2, match_labels=match, inner_labels=inner)
     return batch
 
 
@@ -140,11 +166,25 @@ def train_epoch(model, opt, data: dict, order: torch.Tensor, batch_size: int,
     Step ``k`` draws from ``make_generator(device, seed, k)`` with ``k``
     counted from ``step0``.  Returns (losses (n_steps,), ious (n,)), on the
     device."""
+    batches = (gather_batch(data, order[lo:lo + batch_size], with_labels=True)
+               for lo in range(0, order.numel(), batch_size))
+    return train_batches(model, opt, batches, word_vectors, lr, seed, step0,
+                         drop_rate=drop_rate, match_lambda=match_lambda)
+
+
+def train_batches(model, opt, batches, word_vectors: torch.Tensor, lr: float,
+                  seed: int, step0: int, *, drop_rate: float,
+                  match_lambda: float = 1.0
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One train step per labelled device batch of ``batches``, step ``k``
+    (counted from ``step0``) drawing from ``make_generator(device, seed,
+    k)``: :func:`train_epoch`'s loop, which the streamed epoch runs over
+    uploaded batches.  Returns (losses (n_steps,), ious (n,)), on the
+    device."""
     losses, ious = [], []
-    for i, lo in enumerate(range(0, order.numel(), batch_size)):
-        batch = gather_batch(data, order[lo:lo + batch_size], with_labels=True)
+    for i, batch in enumerate(batches):
         metrics = train_step(model, opt, batch, word_vectors, lr,
-                             make_generator(order.device, seed, step0 + i),
+                             make_generator(word_vectors.device, seed, step0 + i),
                              drop_rate=drop_rate, match_lambda=match_lambda)
         losses.append(metrics["loss"])
         ious.append(metrics["ious"])
@@ -153,6 +193,30 @@ def train_epoch(model, opt, data: dict, order: torch.Tensor, batch_size: int,
 
 def _stochastic(model, mc_droprate: float) -> bool:
     return mc_droprate != 0.0 or model.use_gumbel
+
+
+def folds(model, mc_droprate: float, fold_mc: bool, mc_model=None) -> bool:
+    """Whether the MC passes run folded (``hual_tpu/runtime/steps.py``
+    ``make_infer_step``): asked for, at a nonzero rate, with no gumbel noise
+    and no ``mc_model``."""
+    return (fold_mc and mc_droprate != 0.0 and not model.use_gumbel
+            and mc_model is None)
+
+
+def _folded_passes(model, batch: dict, word_vectors: torch.Tensor,
+                   mc_droprate: float, generator: torch.Generator
+                   ) -> tuple[dict, list[dict]]:
+    """The clean pass and the two MC passes as one forward over 3B rows at
+    the rates ``[0]*B + [mc_droprate]*2B``."""
+    b = batch["video_features"].shape[0]
+    device = batch["video_features"].device
+    batch3 = {k: torch.cat([v, v, v]) for k, v in batch.items()}
+    rates = torch.cat([torch.zeros(b, device=device),
+                       torch.full((2 * b,), mc_droprate, device=device)])
+    out = model(batch3, word_vectors, drop_rate=rates, generator=generator)
+    clean, mc1, mc2 = ({k: v[i * b:(i + 1) * b] if v.dim() else v
+                        for k, v in out.items()} for i in range(3))
+    return clean, [mc1, mc2]
 
 
 def _mc_passes(model, batch: dict, word_vectors: torch.Tensor,
@@ -188,10 +252,6 @@ def _infer_outputs(out: dict, mc: list[dict], batch: dict) -> dict:
             "ious": _ious(out, batch)}
 
 
-def _stack(outs: list[dict]) -> dict:
-    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
-
-
 @torch.inference_mode()
 def eval_step(model, batch: dict, word_vectors: torch.Tensor) -> dict:
     batch = dequantize_batch(batch)
@@ -202,67 +262,92 @@ def eval_step(model, batch: dict, word_vectors: torch.Tensor) -> dict:
 
 @torch.inference_mode()
 def infer_step(model, batch: dict, word_vectors: torch.Tensor,
-               mc_droprate: float = 0.0, generators=None, mc_model=None) -> dict:
+               mc_droprate: float = 0.0, generators=None, mc_model=None,
+               fold_mc: bool = False) -> dict:
     """Clean forward plus the two MC passes; ``generators`` (two) are
-    needed unless the reuse rule holds."""
+    needed unless the reuse rule holds.  Folded (:func:`folds`), one
+    forward draws from the first."""
     batch = dequantize_batch(batch)
+    if folds(model, mc_droprate, fold_mc, mc_model):
+        if not generators:
+            raise ValueError("the folded MC passes need a generator")
+        clean, mc = _folded_passes(model, batch, word_vectors, mc_droprate,
+                                   generators[0])
+        return _infer_outputs(clean, mc, batch)
     clean = model(batch, word_vectors)
     return _infer_outputs(clean, _mc_passes(model, batch, word_vectors,
                                             mc_droprate, generators, clean,
                                             mc_model), batch)
 
 
-@torch.inference_mode()
-def eval_sweep(model, data: dict, sels: torch.Tensor,
-               word_vectors: torch.Tensor) -> torch.Tensor:
-    """sels (n_batches, B) -> ious (n_batches, B), eager model."""
-    return torch.stack([eval_step(model, gather_batch(data, sel), word_vectors)["ious"]
-                        for sel in sels])
+def resident_batches(data: dict, sels: torch.Tensor, n_valid=None):
+    """(device batch, n_valid) per row of ``sels`` (n_batches, B), gathered
+    from the device-resident split: the sweeps' input when the split lives
+    on the device.  Every row is valid unless ``n_valid`` (one count per
+    batch) says otherwise."""
+    for i, sel in enumerate(sels):
+        yield gather_batch(data, sel), (sel.numel() if n_valid is None
+                                        else n_valid[i])
+
+
+def _valid_rows(outs: list[tuple[dict, int]]) -> dict:
+    return {k: torch.cat([o[k][:n] for o, n in outs]) for k in outs[0][0]}
 
 
 @torch.inference_mode()
-def infer_sweep(model, data: dict, sels: torch.Tensor,
-                word_vectors: torch.Tensor, mc_droprate: float = 0.0,
-                seed: int = 0, mc_model=None) -> dict:
-    """sels (n_batches, B) -> dict of (n_batches, B, ...), eager model;
-    batch ``i``'s MC passes draw from ``(seed, i, 0)`` and ``(seed, i, 1)``."""
-    return _stack([infer_step(model, gather_batch(data, sel), word_vectors,
-                              mc_droprate, _mc_generators(model, mc_droprate,
-                                                          sels.device, seed, i),
-                              mc_model)
-                   for i, sel in enumerate(sels)])
+def eval_sweep(model, batches, word_vectors: torch.Tensor) -> torch.Tensor:
+    """The eval sweep on the eager model: ``batches`` yields (device batch,
+    n_valid) (:func:`resident_batches` or the Trainer's host stream);
+    returns the valid rows' IoUs, concatenated on the device."""
+    return torch.cat([eval_step(model, batch, word_vectors)["ious"][:n]
+                      for batch, n in batches])
 
 
 @torch.inference_mode()
-def fused_eval_sweep(model, data: dict, sels: torch.Tensor,
-                     word_vectors: torch.Tensor,
+def infer_sweep(model, batches, word_vectors: torch.Tensor,
+                mc_droprate: float = 0.0, seed: int = 0, mc_model=None,
+                fold_mc: bool = False) -> dict:
+    """The AL sweep on the eager model over :func:`eval_sweep`'s
+    ``batches``; batch ``i``'s MC passes draw from ``(seed, i, 0)`` and
+    ``(seed, i, 1)``, wherever the batch came from.  Returns the valid rows
+    of each output, concatenated on the device."""
+    outs = []
+    for i, (batch, n) in enumerate(batches):
+        gens = _mc_generators(model, mc_droprate, word_vectors.device, seed, i)
+        outs.append((infer_step(model, batch, word_vectors, mc_droprate, gens,
+                                mc_model, fold_mc), n))
+    return _valid_rows(outs)
+
+
+@torch.inference_mode()
+def fused_eval_sweep(model, batches, word_vectors: torch.Tensor,
                      mxu_bf16: bool = False) -> torch.Tensor:
-    """Eval sweep through K2 and K1: sels (n_batches, B) -> ious."""
+    """:func:`eval_sweep` through K2 and K1."""
     packed = pack_weights(model)
     ious = []
-    for sel in sels:
-        batch = gather_batch(data, sel)
+    for batch, n in batches:
+        batch = dequantize_batch(batch)
         ious.append(_ious(seqpan_forward_fused(model, packed, batch,
-                                               word_vectors, mxu_bf16), batch))
-    return torch.stack(ious)
+                                               word_vectors, mxu_bf16),
+                          batch)[:n])
+    return torch.cat(ious)
 
 
 @torch.inference_mode()
-def fused_infer_sweep(model, data: dict, sels: torch.Tensor,
-                      word_vectors: torch.Tensor, mc_droprate: float = 0.0,
-                      seed: int = 0, mc_model=None,
+def fused_infer_sweep(model, batches, word_vectors: torch.Tensor,
+                      mc_droprate: float = 0.0, seed: int = 0, mc_model=None,
                       mxu_bf16: bool = False) -> dict:
-    """AL sweep with the clean pass through K2 and K1 and the stochastic
-    passes on the eager model; same stacked schema and streams as
-    :func:`infer_sweep`."""
+    """:func:`infer_sweep` with the clean pass through K2 and K1 and the
+    stochastic passes on the eager model; the same outputs and streams."""
     packed = pack_weights(model)
     outs = []
-    for i, sel in enumerate(sels):
-        batch = gather_batch(data, sel)
+    for i, (batch, n) in enumerate(batches):
+        batch = dequantize_batch(batch)
         clean = seqpan_forward_fused(model, packed, batch, word_vectors,
                                      mxu_bf16)
         mc = _mc_passes(model, batch, word_vectors, mc_droprate,
-                        _mc_generators(model, mc_droprate, sels.device, seed, i),
+                        _mc_generators(model, mc_droprate, word_vectors.device,
+                                       seed, i),
                         clean, mc_model)
-        outs.append(_infer_outputs(clean, mc, batch))
-    return _stack(outs)
+        outs.append((_infer_outputs(clean, mc, batch), n))
+    return _valid_rows(outs)

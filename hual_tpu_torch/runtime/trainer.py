@@ -3,7 +3,13 @@
 
 ``Trainer`` puts the whole dataset on the card (the feature table in f32,
 bf16, or int8 with its per-clip scales, and the per-sample columns); a step
-or a sweep sends only indices.  ``train()`` runs the reference schedule:
+or a sweep sends only indices.  Host streaming (``train.host_streaming``,
+or by default a table over ``train.hbm_budget_gb``) builds no device table:
+each batch is gathered in NumPy on a prefetch thread (and quantized per
+clip there for an int8 table; f32 and bf16 tables both stream f32, as in
+``hual_tpu``), uploaded, and run through the same steps in the same order
+and random streams, so a streamed run replays a resident one; the sweeps
+then run on the eager model.  ``train()`` runs the reference schedule:
 linear LR decay per epoch, one train step per batch, a test sweep each
 epoch, the best R@1@0.7 params kept as a checkpoint, and a full-state save
 every ``train.save_state_every`` epochs for resume.  ``test()`` gives R@1
@@ -11,7 +17,8 @@ and mIoU of a split; ``infer_trainset()`` writes the round pickle with the
 reference schema, which ``active.engine.update_labels`` reads.
 ``train.sweep_backend`` picks the eager model (``flax``) or K2 + K1
 (``fused``, with bf16 products in K2 under ``train.fused_mxu_bf16``) for the
-sweeps, see ``runtime/steps.py``.  ``model.compute_dtype`` is the eager
+sweeps, see ``runtime/steps.py``; ``train.fold_mc`` folds the eager AL
+sweep's three passes into one forward.  ``model.compute_dtype`` is the eager
 model's activation dtype; ``train.mc_dtype``, when it differs, runs the
 stochastic MC passes on a view of the model at that dtype that shares its
 parameters (nothing is added to ``best.npz`` or ``state.pt``).
@@ -26,9 +33,7 @@ for bit only in deterministic mode (``runtime/debug.enable_deterministic``,
 the ``--deterministic`` flag of ``cli`` and ``orchestrate``).
 
 It runs on the card (``device="cuda"``) unless the caller passes
-``device="cpu"``; without a card it raises.  ``train.fold_mc`` and host
-streaming raise NotImplementedError: they are not ported yet (ROADMAP.md
-queue 1).
+``device="cpu"``; without a card it raises.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ import functools
 import os
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Mapping, Optional
+from typing import Any, Callable, Iterable, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
@@ -45,7 +50,8 @@ import torch
 from hual_tpu_torch.config import (Config, apply_matmul_precision,
                                    resolve_device)
 from hual_tpu_torch.data.features import FeatureStore, quantize_features
-from hual_tpu_torch.data.loader import EvalLoader, PackedDataset, TrainLoader
+from hual_tpu_torch.data.loader import (EvalLoader, PackedDataset,
+                                        TrainLoader, prefetch)
 from hual_tpu_torch.models import get_model_class
 from hual_tpu_torch.ops.optim import BertAdamW, count_params, make_optimizer
 from hual_tpu_torch.runtime import steps
@@ -58,11 +64,6 @@ from hual_tpu_torch.weights import load_jax_params, to_jax_params
 _FEATURE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                    "int8": torch.int8}
 _DeviceTable = tuple[torch.Tensor, Optional[torch.Tensor]]
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: it comes with a "
-                               "later slice of the port (ROADMAP.md queue 1)")
 
 
 @dataclass
@@ -83,8 +84,6 @@ class Trainer:
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         tcfg = config.train
-        if tcfg.fold_mc:
-            raise _unported("train.fold_mc (folded MC-dropout passes)")
         if self.device.type == "cuda":
             apply_matmul_precision(config.model.matmul_precision)
         self.config = config
@@ -112,28 +111,55 @@ class Trainer:
         self.word_vectors = torch.as_tensor(
             np.asarray(dataset["word_vector"], np.float32), device=self.device)
 
-        # the device-resident dataset; host streaming is not ported yet
+        # residency: the device table, or host streaming when asked for or
+        # when the table (rows x T x D in the storage dtype; int8 scales not
+        # counted) is over the budget
         self._feat_dtype = _FEATURE_DTYPES[config.model.feature_dtype]
         packed = feature_store.packed
         table_gb = packed.size * self._feat_dtype.itemsize / 1e9
-        if tcfg.host_streaming or (tcfg.host_streaming is None
-                                   and table_gb > tcfg.hbm_budget_gb):
-            raise _unported(f"host streaming (a {table_gb:.2f} GB feature table, "
-                          f"budget train.hbm_budget_gb={tcfg.hbm_budget_gb})")
-        if device_features is None:
-            device_features = self._put_feature_table(packed)
-        table, scales = device_features
-        if (tuple(table.shape) != packed.shape or table.dtype != self._feat_dtype
-                or (scales is None) != (self._feat_dtype != torch.int8)):
-            raise ValueError(f"device_features {tuple(table.shape)} "
-                             f"{table.dtype} do not match the store's "
-                             f"{packed.shape} {self._feat_dtype}")
-        self._device_features = (table, scales)
-        self._train_data = self._device_data(self.train_set)
-        self._test_data = self._device_data(self.test_set)
-        self._val_data = (self._device_data(self.val_set)
-                          if self.val_set is not None else None)
-        if tcfg.sweep_backend == "fused":
+        hs = tcfg.host_streaming
+        self.host_streaming = (table_gb > tcfg.hbm_budget_gb if hs is None
+                               else bool(hs))
+        self._device_features: Optional[_DeviceTable] = None
+        self._train_data = self._test_data = self._val_data = None
+        if self.host_streaming:
+            self.logger.info(
+                f"host-streaming mode: feature table would be {table_gb:.1f} "
+                f"GB (budget {tcfg.hbm_budget_gb} GB); batches are gathered "
+                "on host and prefetched")
+            if self._feat_dtype == torch.int8:
+                self.logger.info(
+                    "host-streaming with model.feature_dtype='int8': batches "
+                    "are quantized per clip on the prefetch thread and "
+                    "shipped as (int8, f32 scales), a quarter of the f32 "
+                    "upload bytes")
+            if device_features is not None:
+                self.logger.info("host-streaming mode: the device_features "
+                                 "passed in are not used")
+        else:
+            if device_features is None:
+                device_features = self._put_feature_table(packed)
+            table, scales = device_features
+            if (tuple(table.shape) != packed.shape
+                    or table.dtype != self._feat_dtype
+                    or (scales is None) != (self._feat_dtype != torch.int8)):
+                raise ValueError(f"device_features {tuple(table.shape)} "
+                                 f"{table.dtype} do not match the store's "
+                                 f"{packed.shape} {self._feat_dtype}")
+            self._device_features = (table, scales)
+            self._train_data = self._device_data(self.train_set)
+            self._test_data = self._device_data(self.test_set)
+            self._val_data = (self._device_data(self.val_set)
+                              if self.val_set is not None else None)
+        if tcfg.sweep_backend == "fused" and self.host_streaming:
+            # hual_tpu's documented fallback and warning
+            # (hual_tpu/runtime/trainer.py), kept for parity: the fused
+            # sweeps would take the streamed batches as they are
+            self.logger.warning(
+                "train.sweep_backend='fused' requires a device-resident "
+                "dataset; host-streaming mode is active, using the flax "
+                "sweep backend instead")
+        if tcfg.sweep_backend == "fused" and not self.host_streaming:
             self._eval_sweep = functools.partial(
                 steps.fused_eval_sweep, mxu_bf16=tcfg.fused_mxu_bf16)
             self._infer_sweep = functools.partial(
@@ -141,8 +167,8 @@ class Trainer:
                 mxu_bf16=tcfg.fused_mxu_bf16)
         else:
             self._eval_sweep = steps.eval_sweep
-            self._infer_sweep = functools.partial(steps.infer_sweep,
-                                                  mc_model=self.mc_model)
+            self._infer_sweep = functools.partial(
+                steps.infer_sweep, mc_model=self.mc_model, fold_mc=tcfg.fold_mc)
         # eval/infer index matrices depend only on the split and the batch
         # size: built and put on the device once
         self._sweep_cache: dict[str, tuple[Any, list, torch.Tensor, int]] = {}
@@ -180,9 +206,9 @@ class Trainer:
                                                    tcfg.weight_decay))
         return self.state
 
-    def export_device_features(self) -> _DeviceTable:
+    def export_device_features(self) -> Optional[_DeviceTable]:
         """The device table, to reuse across rounds: (table, scales), with
-        scales None unless the table is int8."""
+        scales None unless the table is int8; None under host streaming."""
         return self._device_features
 
     def _put_feature_table(self, packed: np.ndarray) -> _DeviceTable:
@@ -204,6 +230,33 @@ class Trainer:
             data["feature_scales"] = scales
         return data
 
+    def _hs_stream(self, it: Iterable[tuple[dict, int]]
+                   ) -> Iterator[tuple[dict, int]]:
+        """The streamed batches' transform on the prefetch thread: an int8
+        table's batches are quantized per clip (``quantize_features``, the
+        resident table's scheme, so both dequantize to the same values) and
+        ship as (int8, f32 scales).  The identity for f32 and for bf16
+        tables: a bf16 table streams f32, as ``hual_tpu`` does."""
+        if self._feat_dtype != torch.int8:
+            yield from it
+            return
+        for host, n in it:
+            q, scales = quantize_features(host["video_features"])
+            yield dict(host, video_features=q, feature_scales=scales), n
+
+    def _stream(self, dataset: PackedDataset, sels: Iterable[tuple[Any, int]],
+                with_labels: bool = False) -> Iterator[tuple[dict, int]]:
+        """(device batch, n_valid) per (indices, n_valid) of ``sels``: the
+        NumPy gather and ``_hs_stream`` run on the prefetch thread, which
+        makes no CUDA call; the upload runs in the caller's."""
+        host = ((dataset.gather(sel, with_labels=False), n) for sel, n in sels)
+        stream = prefetch(self._hs_stream(host))
+        try:
+            for batch, n in stream:
+                yield steps.upload_batch(batch, self.device, with_labels), n
+        finally:
+            stream.close()   # a stream left early (a step raised) ends its thread
+
     def _sweep_sels(self, key: str, dataset: PackedDataset, batch_size: int
                     ) -> tuple[list, torch.Tensor]:
         cached = self._sweep_cache.get(key)
@@ -215,26 +268,38 @@ class Trainer:
             self._sweep_cache[key] = cached
         return cached[1], cached[2]
 
+    def _sweep_batches(self, key: str, dataset: PackedDataset,
+                       batch_size: int) -> Iterator[tuple[dict, int]]:
+        """A sweep's (device batch, n_valid) pairs over ``dataset`` in
+        ``EvalLoader``'s padded batches: gathered from the device split, or
+        streamed from the host in the same order (batch ``i`` is the same
+        batch, so it draws from the same MC streams)."""
+        if self.host_streaming:
+            loader = EvalLoader(dataset, batch_size, pad_to_batch=True)
+            return self._stream(dataset, loader.index_iter())
+        data = {"infer": self._train_data, "test": self._test_data,
+                "val": self._val_data}[key]
+        pairs, sels = self._sweep_sels(key, dataset, batch_size)
+        return steps.resident_batches(data, sels, [n for _, n in pairs])
+
     def _require_weights(self) -> None:
         if self.state is None:
             raise RuntimeError("no weights: call init_state() or load_params()")
 
     # ------------------------------------------------------------------
     def test(self, split: str = "test") -> dict[str, float]:
-        """R@1@{0.3,0.5,0.7} and mIoU of a split, one device-resident sweep
-        ending in one host fetch."""
+        """R@1@{0.3,0.5,0.7} and mIoU of a split, one sweep ending in one
+        host fetch."""
         self._require_weights()
         ds = {"test": self.test_set, "val": self.val_set}[split]
         if ds is None:
             raise ValueError(f"{split} set is not available")
-        data = {"test": self._test_data, "val": self._val_data}[split]
         batch_size = min(self.config.eval_batch_size, len(ds))
-        pairs, sels = self._sweep_sels(split, ds, batch_size)
         with trace(f"eval_sweep_{split}"):
-            ious = self._eval_sweep(self.model, data, sels,
+            ious = self._eval_sweep(self.model,
+                                    self._sweep_batches(split, ds, batch_size),
                                     self.word_vectors).cpu().numpy()
-        kept = np.concatenate([ious[i, :n] for i, (_, n) in enumerate(pairs)])
-        return rank1_metrics(kept)
+        return rank1_metrics(ious)
 
     def infer_trainset(self, save_path: Optional[str] = None,
                        seed: Optional[int] = None) -> dict[str, float]:
@@ -247,16 +312,12 @@ class Trainer:
         if save_path is None:
             save_path = f"./results/{cfg.task}/{cfg.suffix}.pkl"
         batch_size = min(cfg.infer_batch_size, len(self.train_set))
-        pairs, sels = self._sweep_sels("infer", self.train_set, batch_size)
         with trace("infer_sweep"):
-            outs = self._infer_sweep(self.model, self._train_data, sels,
-                                     self.word_vectors, cfg.train.mc_droprate,
-                                     seed)
-            host = {}
-            for k, v in outs.items():
-                stacked = v.cpu().numpy()                    # (n_batches, B, ...)
-                host[k] = np.concatenate(
-                    [stacked[i, :n] for i, (_, n) in enumerate(pairs)], axis=0)
+            outs = self._infer_sweep(
+                self.model, self._sweep_batches("infer", self.train_set,
+                                                batch_size),
+                self.word_vectors, cfg.train.mc_droprate, seed)
+            host = {k: v.cpu().numpy() for k, v in outs.items()}
 
         save_list = []
         for i, rec in enumerate(self.train_set.records):
@@ -316,14 +377,26 @@ class Trainer:
             t0 = time.perf_counter()
             timer.start()
             with trace(f"train_epoch_{epoch}"):
-                order = torch.from_numpy(np.concatenate(
-                    list(loader.index_iter(epoch)))).to(self.device)
-                losses, ious = steps.train_epoch(
-                    self.model, state.opt, self._train_data, order,
-                    loader.batch_size, self.word_vectors, cur_lr,
-                    tcfg.seed + 17, state.step, drop_rate=tcfg.droprate,
-                    match_lambda=cfg.loss.match_lambda)
-                # the epoch's one fetch, and the only synchronisation
+                if self.host_streaming:
+                    # the resident path's batch order and step streams
+                    sels = ((sel, len(sel)) for sel in loader.index_iter(epoch))
+                    losses, ious = steps.train_batches(
+                        self.model, state.opt,
+                        (b for b, _ in self._stream(self.train_set, sels,
+                                                    with_labels=True)),
+                        self.word_vectors, cur_lr, tcfg.seed + 17, state.step,
+                        drop_rate=tcfg.droprate,
+                        match_lambda=cfg.loss.match_lambda)
+                else:
+                    order = torch.from_numpy(np.concatenate(
+                        list(loader.index_iter(epoch)))).to(self.device)
+                    losses, ious = steps.train_epoch(
+                        self.model, state.opt, self._train_data, order,
+                        loader.batch_size, self.word_vectors, cur_lr,
+                        tcfg.seed + 17, state.step, drop_rate=tcfg.droprate,
+                        match_lambda=cfg.loss.match_lambda)
+                # the epoch's one fetch, and its only synchronisation but
+                # for the streamed batches' synchronous uploads
                 fetched = torch.cat([losses, ious]).cpu().numpy()
             state.step += losses.numel()
             timer.stop(loader.num_samples())

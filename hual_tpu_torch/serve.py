@@ -43,15 +43,26 @@ _WORDVECS = "word_vectors.npy"
 Request = tuple[np.ndarray, float, str]
 
 
-def export_bundle(model: torch.nn.Module, path: str, *, config: Config,
-                  word_dict: dict[str, int], char_dict: dict[str, int],
-                  word_vectors: np.ndarray, max_wlen: int,
-                  max_clen: int) -> str:
-    """Write a serving bundle that either package reads.  Returns ``path``.
+def export_bundle(trainer, path: str) -> str:
+    """Write a serving bundle of a (trained) ``runtime.trainer.Trainer``:
+    its params, GloVe rows, vocabularies, config and packed text bounds.
+    Either package reads it.  Returns ``path``."""
+    trainer._require_weights()
+    return export_model_bundle(
+        trainer.model, path, config=trainer.config,
+        word_dict=trainer.dataset["word_dict"],
+        char_dict=trainer.dataset["char_dict"],
+        word_vectors=trainer.dataset["word_vector"],
+        max_wlen=trainer.train_set.max_wlen,
+        max_clen=trainer.train_set.max_clen)
 
-    The port has no trainer yet, so the model and the text tables are
-    passed directly.
-    """
+
+def export_model_bundle(model: torch.nn.Module, path: str, *, config: Config,
+                        word_dict: dict[str, int], char_dict: dict[str, int],
+                        word_vectors: np.ndarray, max_wlen: int,
+                        max_clen: int) -> str:
+    """Write a serving bundle of a model and its text tables, passed
+    directly.  Either package reads it.  Returns ``path``."""
     os.makedirs(path, exist_ok=True)
     np.savez(os.path.join(path, _PARAMS), **to_jax_params(model))
     np.save(os.path.join(path, _WORDVECS), np.asarray(word_vectors, np.float32))
@@ -98,6 +109,17 @@ class Predictor:
         self._unk_c = char_dict[UNK]
         self.word_vectors = torch.as_tensor(
             np.asarray(word_vectors, np.float32), device=self.device)
+
+    @classmethod
+    def from_trainer(cls, trainer, batch_size: int = 8) -> "Predictor":
+        """A Predictor on the trainer's device with a copy of its current
+        params (later training does not move it)."""
+        trainer._require_weights()
+        return cls(trainer.config, to_jax_params(trainer.model),
+                   trainer.dataset["word_dict"], trainer.dataset["char_dict"],
+                   np.asarray(trainer.dataset["word_vector"], np.float32),
+                   trainer.train_set.max_wlen, trainer.train_set.max_clen,
+                   batch_size=batch_size, device=trainer.device)
 
     @classmethod
     def from_bundle(cls, path: str, batch_size: int = 8,

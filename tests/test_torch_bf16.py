@@ -64,7 +64,7 @@ from hual_tpu_torch.ops.kernels import fused_forward as k2  # noqa: E402
 from hual_tpu_torch.ops.optim import make_optimizer  # noqa: E402
 from hual_tpu_torch.runtime import debug, steps  # noqa: E402
 from hual_tpu_torch.runtime.trainer import Trainer  # noqa: E402
-from hual_tpu_torch.serve import Predictor, export_bundle  # noqa: E402
+from hual_tpu_torch.serve import Predictor, export_model_bundle  # noqa: E402
 from hual_tpu_torch.utils.io import load_pickle  # noqa: E402
 from hual_tpu_torch.weights import _leaves, load_jax_params, to_jax_params  # noqa: E402
 
@@ -448,10 +448,10 @@ def test_bf16_bundle_serves(world, tmp_path):
         cfg = Config.from_dict(_config(root))
         cfg.model.compute_dtype = dtype
         cfg.model.num_chars, cfg.model.num_words = dataset["n_chars"], dataset["n_words"]
-        path = export_bundle(tr.model, str(tmp_path / dtype), config=cfg,
-                             word_vectors=dataset["word_vector"],
-                             max_wlen=dataset["max_wlen"],
-                             max_clen=dataset["max_clen"], **vocab)
+        path = export_model_bundle(tr.model, str(tmp_path / dtype), config=cfg,
+                                   word_vectors=dataset["word_vector"],
+                                   max_wlen=dataset["max_wlen"],
+                                   max_clen=dataset["max_clen"], **vocab)
         pred = Predictor.from_bundle(path, batch_size=4, device="cpu")
         assert pred.model.compute_dtype == dtype
         results = pred.predict_batch(requests)

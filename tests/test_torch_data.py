@@ -10,6 +10,7 @@ from __future__ import annotations
 import json
 import os
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -169,6 +170,28 @@ def test_prefetch_order_and_errors():
 
     with pytest.raises(KeyError):
         list(ploader.prefetch(broken()))
+
+
+def test_prefetch_abandoned_stream_ends_its_thread():
+    """A consumer that stops early (a step raised) closes the stream; the
+    producer, blocked on a full queue, ends instead of holding its items."""
+    before = set(threading.enumerate())
+    produced = []
+
+    def endless():
+        i = 0
+        while True:
+            produced.append(i)
+            yield i
+            i += 1
+
+    stream = ploader.prefetch(endless(), depth=2)
+    assert next(stream) == 0
+    (producer,) = set(threading.enumerate()) - before
+    stream.close()
+    producer.join(timeout=5.0)
+    assert not producer.is_alive()
+    assert len(produced) <= 5
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -3,7 +3,12 @@
 A bundle written by ``hual_tpu``'s own ``export_bundle`` (an initialised,
 untrained Trainer on the synthetic corpus) serves the same raw requests
 through both Predictors, with ``model.span_decode`` xla and pallas; a bundle
-written by the port's ``export_bundle`` serves in ``hual_tpu`` too.
+written by the port's ``export_model_bundle`` serves in ``hual_tpu`` too.
+The trainer-facing API: a bundle of either package's
+``export_bundle(trainer)`` (the port's Trainer on the same params) serves
+in both; ``Predictor.from_trainer``'s spans equal the trainer's own eval
+path on the packed test split (the counterpart of ``tests/test_serve.py``'s
+``test_bundle_matches_trainer_eval_path``) and its exported bundle's.
 Indices and lengths are exact, times within rtol 1e-6, scores within atol
 1e-5 (the frameworks sum the forward in different orders).
 """
@@ -15,6 +20,7 @@ import os
 import shutil
 import sys
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -28,11 +34,15 @@ from hual_tpu.data.datasets import gen_or_load_dataset  # noqa: E402
 from hual_tpu.data.features import FeatureStore  # noqa: E402
 from hual_tpu.runtime.trainer import Trainer  # noqa: E402
 from hual_tpu.serve import Predictor as JaxPredictor  # noqa: E402
+from hual_tpu.serve import _flatten_params  # noqa: E402
 from hual_tpu.serve import export_bundle as jax_export_bundle  # noqa: E402
 from hual_tpu.utils.io import load_json  # noqa: E402
 from hual_tpu_torch import serve  # noqa: E402
 from hual_tpu_torch.config import Config as PortConfig  # noqa: E402
+from hual_tpu_torch.data.features import FeatureStore as PortFeatureStore  # noqa: E402
 from hual_tpu_torch.models.seqpan import SeqPAN  # noqa: E402
+from hual_tpu_torch.runtime import steps  # noqa: E402
+from hual_tpu_torch.runtime.trainer import Trainer as PortTrainer  # noqa: E402
 
 BATCH = 4
 
@@ -137,7 +147,7 @@ def test_jax_reads_port_bundle(served, tmp_path):
         vocab = json.load(f)
     config = PortConfig.from_dict(meta["config"])
     model = SeqPAN.from_config(config, generator=torch.Generator().manual_seed(5))
-    path = serve.export_bundle(
+    path = serve.export_model_bundle(
         model, str(tmp_path / "port_bundle"), config=config,
         word_dict=vocab["word_dict"], char_dict=vocab["char_dict"],
         word_vectors=np.load(os.path.join(src, "word_vectors.npy")),
@@ -155,3 +165,58 @@ def test_predictor_needs_a_card_unless_asked_for_cpu(served):
         pytest.skip("a CUDA device is present: the default device is valid")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.Predictor.from_bundle(served["bundles"]["xla"])
+
+
+@pytest.fixture(scope="module")
+def port_trainer(served):
+    """The port's Trainer on the served corpus with the JAX trainer's
+    params, decoding with K1's wrapper (its plain version here)."""
+    jt = served["trainer"]
+    cfg = PortConfig.from_dict(jt.config.to_dict())
+    cfg.model.span_decode = "pallas"
+    store = PortFeatureStore.from_dir(cfg.paths.feature_path, cfg.model.max_vlen)
+    tr = PortTrainer(cfg, jt.dataset, store, device="cpu")
+    tr.load_params(_flatten_params(jax.device_get(jt.state.params)))
+    return tr
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_trainer_bundles_serve_in_both(served, port_trainer, tmp_path, writer):
+    path = str(tmp_path / "bundle")
+    if writer == "port":
+        assert serve.export_bundle(port_trainer, path) == path
+    else:
+        jax_export_bundle(served["trainer"], path)
+    ref = JaxPredictor.from_bundle(path, batch_size=BATCH)
+    port = serve.Predictor.from_bundle(path, batch_size=BATCH, device="cpu")
+    _assert_same_predictions(port.predict_batch(served["requests"]),
+                             ref.predict_batch(served["requests"]))
+
+
+def test_from_trainer_matches_trainer_eval_path(served, port_trainer, tmp_path):
+    pred = serve.Predictor.from_trainer(port_trainer, batch_size=BATCH)
+    assert pred.device == port_trainer.device and pred.model.span_decode == "pallas"
+    requests = served["requests"][:-1]          # the test split, in order
+    preds = pred.predict_batch(requests)
+    ds = port_trainer.test_set
+    assert len(preds) == len(ds)
+    out = steps.eval_step(port_trainer.model,
+                          steps.gather_batch(port_trainer._test_data,
+                                             torch.arange(len(ds))),
+                          port_trainer.word_vectors)
+    for i, p in enumerate(preds):
+        assert p["start_index"] == int(out["start_index"][i]), i
+        assert p["end_index"] == int(out["end_index"][i]), i
+        assert p["v_len"] == int(ds.v_len[i])
+    bundle = serve.export_bundle(port_trainer, str(tmp_path / "bundle"))
+    assert serve.Predictor.from_bundle(bundle, batch_size=BATCH,
+                                       device="cpu").predict_batch(requests) == preds
+    param = next(port_trainer.model.parameters())
+    kept = param.detach().clone()
+    with torch.no_grad():                       # the Predictor holds a copy
+        param.add_(1.0)
+    try:
+        assert pred.predict_batch(requests) == preds
+    finally:
+        with torch.no_grad():
+            param.copy_(kept)

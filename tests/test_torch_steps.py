@@ -135,17 +135,20 @@ def sweeps():
 def test_eval_sweep_matches(sweeps, backend):
     model, data, sels, wv, ref = sweeps
     sweep = steps.eval_sweep if backend == "flax" else steps.fused_eval_sweep
-    ious = sweep(model, data, sels, wv)
-    assert ious.shape == sels.shape and ious.dtype == torch.float32
-    np.testing.assert_allclose(ious.numpy(), ref[backend][0], rtol=0, atol=1e-6)
+    ious = sweep(model, steps.resident_batches(data, sels), wv)
+    assert ious.shape == (sels.numel(),) and ious.dtype == torch.float32
+    np.testing.assert_allclose(ious.numpy(), ref[backend][0].reshape(-1),
+                               rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("backend", ["flax", "fused"])
 def test_infer_sweep_matches(sweeps, backend):
     model, data, sels, wv, ref = sweeps
     sweep = steps.infer_sweep if backend == "flax" else steps.fused_infer_sweep
-    out = {k: v.numpy() for k, v in sweep(model, data, sels, wv).items()}
-    want = ref[backend][1]
+    out = {k: v.numpy() for k, v in
+           sweep(model, steps.resident_batches(data, sels), wv).items()}
+    # the sweep keeps (n_batches * B, ...) rows; JAX stacks (n_batches, B, ...)
+    want = {k: v.reshape(-1, *v.shape[2:]) for k, v in ref[backend][1].items()}
     assert set(out) == set(want)
     for k in want:
         assert out[k].shape == want[k].shape, k
@@ -164,8 +167,8 @@ def test_infer_sweep_matches(sweeps, backend):
 
 def test_backends_agree(sweeps):
     model, data, sels, wv, _ = sweeps
-    eager = steps.infer_sweep(model, data, sels, wv)
-    fused = steps.fused_infer_sweep(model, data, sels, wv)
+    eager = steps.infer_sweep(model, steps.resident_batches(data, sels), wv)
+    fused = steps.fused_infer_sweep(model, steps.resident_batches(data, sels), wv)
     for k in ("start_index", "end_index"):
         torch.testing.assert_close(fused[k], eager[k], rtol=0, atol=0)
     torch.testing.assert_close(fused["start_logits"], eager["start_logits"],
@@ -179,14 +182,17 @@ def test_stochastic_passes_run(sweeps, sweep):
     leave the clean pass as it was.  With the gumbel head on they run live
     at mc 0 too."""
     model, data, sels, wv, _ = sweeps
-    fn = getattr(steps, sweep)
+    sweep_fn = getattr(steps, sweep)
+
+    def fn(model, data, sels, wv, **kw):
+        return sweep_fn(model, steps.resident_batches(data, sels), wv, **kw)
+
     clean = fn(model, data, sels, wv)
     out = fn(model, data, sels, wv, mc_droprate=0.5, seed=3)
     for k in ("start_logits", "end_logits", "match_scores", "start_index",
               "end_index", "ious"):
         torch.testing.assert_close(out[k], clean[k], rtol=0, atol=0)
-    valid = sequence_mask(data["v_len"][sels.reshape(-1)], T).reshape(
-        *sels.shape, T).bool()
+    valid = sequence_mask(data["v_len"][sels.reshape(-1)], T).bool()
     s0, s1, s2 = (out[k][valid] for k in ("start_logits", "start_logits1",
                                            "start_logits2"))
     assert (s1 != s0).float().mean() > 0.9 and (s1 != s2).float().mean() > 0.9

@@ -7,8 +7,9 @@ pickle has ``hual_tpu``'s keys, value types and dtypes, its logits agree
 within rtol 1e-4 / atol 2e-4, match scores within atol 1e-5 and indices
 exactly; ``hual_tpu``'s and the port's ``update_labels`` write the same
 ``train.json`` from either pickle.  Also: the live MC passes written to the pickle, the
-weights rule and the training entry points, the options that still raise
-NotImplementedError, and the device rule (the card unless ``device="cpu"``).
+weights rule and the training entry points, and the device rule (the card
+unless ``device="cpu"``).  Host streaming and ``fold_mc`` are in
+``test_torch_streaming.py`` and ``test_torch_fold_mc.py``.
 """
 
 from __future__ import annotations
@@ -175,16 +176,6 @@ def test_compressed_feature_tables(world, feature_dtype):
     assert (scales is not None) == (feature_dtype == "int8")
     metrics = tr.test()
     assert all(np.isfinite(v) for v in metrics.values())
-
-
-@pytest.mark.parametrize("train,match", [
-    ({"fold_mc": True}, "fold_mc"),
-    ({"host_streaming": True}, "host streaming"),
-    ({"hbm_budget_gb": 1e-9}, "host streaming"),
-])
-def test_unported_options_raise(world, train, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _port(world, **train)
 
 
 @pytest.mark.parametrize("backend", ["flax", "fused"])
