@@ -113,7 +113,25 @@ line; any failure exits non-zero before the last line:
    0.5565 (the same dataset), each round's pseudo-mIoU inside
    ``hual_tpu``'s and the reference's seed band, launches equal to the
    epochs' steps and batches;
-12. kernels: one entry per ported kernel (K2's bf16 path apart) with its
+12. graphs_charades, the device-resident loops as captured CUDA graphs
+   (``runtime/graphs.py``), which every resident Trainer above replays on
+   the card: (a)-(c) in a fresh deterministic process (``--graphs-worker``)
+   on the Sweep/Train cell's table, each Trainer graphed and, on the same
+   weights, eager: (a) ``Trainer.train()`` for one epoch of 1,605 queries
+   (100 replayed steps and a ragged eager one) at ``compute_dtype``
+   float32 and bfloat16: params, optimizer moments, losses and IoUs
+   bit-equal; (b) ``test()`` (flax, fused, ``fused_mxu_bf16``) and
+   ``infer_trainset()`` at mc 0 and 0.5 (sequential, ``fold_mc``,
+   ``mc_dtype: bfloat16``) on (a)'s weights: IoUs and pickles bit-equal;
+   (c) a fused test sweep captured before the epoch and replayed after it
+   equals the eager one (the pack is refreshed in place); then, outside
+   deterministic mode on the Train cell: one graphed epoch, ms a step
+   graphed and eager in turns, 20 graphed steps profiled (the host's launch
+   calls and the device's idle share), each capture's seconds and pool
+   bytes, the test sweep and the MC sweep at mc 0.5 (whole train split)
+   graphed and eager in turns; K1 and K2 launches equal to the steps and
+   batches replayed in every run;
+13. kernels: one entry per ported kernel (K2's bf16 path apart) with its
    launches on the main paths and its check against the plain version; the
    seconds per phase.
 
@@ -289,6 +307,12 @@ def device_profile(fn, calls: int = 3, top: int = 12, match: str = "") -> dict:
                and e.name not in ranges]
     if not kernels:
         return {"device_time": "not measured: the profiler recorded no kernel"}
+    # the host's launch calls (cudaLaunchKernel, cudaGraphLaunch, ...)
+    host_launches: dict[str, float] = {}
+    for e in events:
+        if e.device_type != DeviceType.CUDA and e.name.startswith("cu") \
+                and "Launch" in e.name:
+            host_launches[e.name] = host_launches.get(e.name, 0) + 1 / calls
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     span_us = (max(e.time_range.end for e in kernels)
                - min(e.time_range.start for e in kernels))
@@ -308,6 +332,7 @@ def device_profile(fn, calls: int = 3, top: int = 12, match: str = "") -> dict:
                                "launches_per_call": n / calls,
                                "busy_share": us / busy_us}}
     return {"calls": calls, "kernels_per_call": len(kernels) / calls, **matched,
+            "host_launches_per_call": host_launches,
             "busy_ms_per_call": busy_us / calls / 1e3,
             "span_ms_per_call": span_us / calls / 1e3,
             "device_idle_share": 1.0 - busy_us / span_us if span_us else None,
@@ -1914,17 +1939,8 @@ def bf16_train(workdir: str, config, store, dataset, table, f32: dict) -> dict:
     cfg = train_config(config, os.path.join(workdir, "ckpt_bf16"), epochs=1)
     cfg.suffix = "bf16"
     cfg.model.compute_dtype = "bfloat16"
-    step_losses = []
-    real = steps.train_epoch
-
-    def capture(*a, **kw):
-        losses, ious = real(*a, **kw)
-        step_losses.append(losses)
-        return losses, ious
-
     here = os.getcwd()
     os.chdir(workdir)                        # train() writes ./logs/<task>/
-    steps.train_epoch = capture
     try:
         tr = Trainer(cfg, sub, store, logger=logging.getLogger("chip_smoke.bf16"),
                      device_features=table, device=DEVICE)
@@ -1935,15 +1951,15 @@ def bf16_train(workdir: str, config, store, dataset, table, f32: dict) -> dict:
         torch.cuda.reset_peak_memory_stats()
         reset_launches()                                        # main path starts
         t0 = time.perf_counter()
-        tr.train()
+        with recorded(tr._graphs, "train_epoch") as epochs:     # the graphed epoch
+            tr.train()
         seconds = time.perf_counter() - t0
         launches = launch_counts()                             # main path ends
         tr.close()
         peak = torch.cuda.max_memory_allocated()
     finally:
-        steps.train_epoch = real
         os.chdir(here)
-    losses = torch.cat(step_losses).cpu().numpy()
+    losses = torch.cat([losses for losses, _ in epochs]).cpu().numpy()
     k = max(1, len(losses) // 5)                    # the first and last fifth
     first, last = float(losses[:k].mean()), float(losses[-k:].mean())
     check(len(losses) == n_steps and np.isfinite(losses).all() and last < first,
@@ -2261,12 +2277,314 @@ def loop_phase(workdir: str, config, warm: dict) -> dict:
             for k in ("span_decode", "fused_forward")}
 
 
+# -- phase 12 -----------------------------------------------------------------
+# (a)'s train set: the Train cell's queries and 5 more, 100 full batches of 16
+# (replayed) and a ragged one of 5 (the eager step after the replays)
+GRAPH_QUERIES = TRAIN_QUERIES + 5
+# (b)'s Trainers: train options on train_config's (fused sweeps); test() runs
+# on those at mc 0, infer_trainset() on all
+GRAPH_SWEEPS = {"flax": dict(sweep_backend="flax"), "fused": {},
+                "fused_mxu_bf16": dict(fused_mxu_bf16=True),
+                "flax_mc": dict(sweep_backend="flax", mc_droprate=0.5),
+                "flax_fold_mc": dict(sweep_backend="flax", mc_droprate=0.5,
+                                     fold_mc=True),
+                "fused_mc": dict(mc_droprate=0.5),
+                "fused_mc_dtype_bf16": dict(mc_droprate=0.5, mc_dtype="bfloat16")}
+
+
+class recorded:
+    """Within the block, every call of ``obj.name`` appends its result to
+    the list the block gets."""
+
+    def __init__(self, obj, name: str):
+        self.obj, self.name, self.calls = obj, name, []
+
+    def __enter__(self) -> list:
+        real = self.real = getattr(self.obj, self.name)
+
+        def wrapped(*args, **kwargs):
+            out = real(*args, **kwargs)
+            self.calls.append(out)
+            return out
+        setattr(self.obj, self.name, wrapped)
+        return self.calls
+
+    def __exit__(self, *exc) -> None:
+        setattr(self.obj, self.name, self.real)
+
+
+def graphed_vs_eager_training(root: str, config, store, sub: dict, table) -> tuple:
+    """(a) and (c): per compute dtype, Trainer.train() for one epoch from one
+    init, graphed and eager, with a test sweep before it (the fused sweep's
+    graph captured on the initial weights) and after it."""
+    out, flat = {}, None
+    for dtype in ("float32", "bfloat16"):
+        runs = {}
+        for graphed in (True, False):
+            name = f"{dtype}_{'graphed' if graphed else 'eager'}"
+            cfg = train_config(config, os.path.join(root, f"ckpt_{name}"), epochs=1)
+            cfg.suffix, cfg.model.compute_dtype = name, dtype
+            tr = Trainer(cfg, sub, store, logger=logging.getLogger("chip_smoke.graphs"),
+                         device_features=table, device=DEVICE)
+            table = tr.export_device_features()
+            check(tr._graphs is not None, "a resident Trainer on the card has no graphs")
+            if not graphed:
+                tr._graphs = None                   # the eager loops of runtime/steps.py
+            tr.init_state(SEED)
+            before = tr._sweep_ious("test")
+            reset_launches()
+            t0 = time.perf_counter()
+            with recorded(tr._graphs if graphed else steps, "train_epoch") as epochs:
+                best = tr.train()
+            seconds = time.perf_counter() - t0
+            launches = launch_counts()
+            losses, ious = epochs[0]
+            runs[graphed] = {"tr": tr, "before": before, "after": tr._sweep_ious("test"),
+                             "losses": losses.cpu(), "ious": ious.cpu(), "best": best,
+                             "seconds": seconds, "launches": launches}
+        g, e = runs[True], runs[False]
+        pg, pe = g["tr"].model.state_dict(), e["tr"].model.state_dict()
+        og, oe = g["tr"].state.opt, e["tr"].state.opt
+        same = {"params": all(torch.equal(pg[k], pe[k]) for k in pg),
+                "moments": all(torch.equal(a, b) for a, b in zip(og.mu + og.nu,
+                                                                 oe.mu + oe.nu)),
+                "losses": torch.equal(g["losses"], e["losses"]),
+                "ious": torch.equal(g["ious"], e["ious"]),
+                "test_before": bool(np.array_equal(g["before"], e["before"])),
+                "test_after_epoch": bool(np.array_equal(g["after"], e["after"]))}
+        check(all(same.values()), f"graphs {dtype}: graphed vs eager bit-equal: {same}")
+        check(not np.array_equal(e["before"], e["after"]),
+              f"graphs {dtype}: the test IoUs did not move with training")
+        n_steps = len(g["losses"])
+        n_test = math.ceil(len(g["tr"].test_set) / config.eval_batch_size)
+        for r in (g, e):
+            # K1 once a step and a test batch, K2 once a test batch
+            check(r["launches"] == {"span_decode": n_steps + n_test,
+                                    "fused_forward": n_test, "fused_forward_bf16": 0},
+                  f"graphs {dtype}: launches {r['launches']}")
+        if flat is None:
+            flat = to_jax_params(g["tr"].model)
+        out[dtype] = {"steps": n_steps, "replayed": n_steps - 1, "ragged_eager": 1,
+                      "bit_equal": same, "loss_first": float(g["losses"][0]),
+                      "loss_last": float(g["losses"][-1]),
+                      "train_seconds": {"graphed": g["seconds"], "eager": e["seconds"]},
+                      "launches": g["launches"],
+                      "graphs": g["tr"]._graphs.stats()}
+        for r in (g, e):
+            r["tr"].close()
+        del runs, g, e
+        torch.cuda.empty_cache()
+    return out, flat, table
+
+
+def graphed_vs_eager_sweeps(root: str, config, store, sub: dict, table, flat) -> dict:
+    """(b): test() and infer_trainset() graphed and eager on the trained
+    weights, per GRAPH_SWEEPS entry: IoUs and pickles bit-equal."""
+    out = {}
+    for name, opts in GRAPH_SWEEPS.items():
+        cfg = train_config(config, "", **opts)
+        tr = Trainer(cfg, sub, store, logger=logging.getLogger("chip_smoke.graphs"),
+                     device_features=table, device=DEVICE)
+        tr.load_params(flat)
+        cache, res = tr._graphs, {}
+        for graphed in (True, False):
+            tr._graphs = cache if graphed else None
+            reset_launches()
+            t0 = time.perf_counter()
+            test = None if cfg.train.mc_droprate else tr._sweep_ious("test")
+            pkl = os.path.join(root, f"{name}_{graphed}.pkl")
+            metrics = tr.infer_trainset(save_path=pkl)
+            seconds = time.perf_counter() - t0
+            with open(pkl, "rb") as fh:
+                rows = pickle.load(fh)
+            res[graphed] = (test, rows, metrics, seconds, launch_counts())
+        (tg, rg, mg, sg, lg), (te, re_, me, se, _) = res[True], res[False]
+        same_test = tg is None or bool(np.array_equal(tg, te))
+        same_rows = len(rg) == len(re_) and all(_same_row(a, b) for a, b in zip(rg, re_))
+        check(same_test and same_rows and mg == me,
+              f"graphs {name}: test IoUs equal {same_test}, pickles equal {same_rows}")
+        n = math.ceil(len(sub["train_set"]) / cfg.infer_batch_size) + (
+            0 if tg is None else math.ceil(len(tr.test_set) / cfg.eval_batch_size))
+        fused = cfg.train.sweep_backend == "fused"
+        want = {"span_decode": n,
+                "fused_forward": n if fused and not cfg.train.fused_mxu_bf16 else 0,
+                "fused_forward_bf16": n if cfg.train.fused_mxu_bf16 else 0}
+        check(lg == want, f"graphs {name}: launches {lg}, want {want}")
+        out[name] = {"test_bit_equal": same_test if tg is not None else None,
+                     "pickle_bit_equal": same_rows, "batches": n, "launches": lg,
+                     "seconds": {"graphed": sg, "eager": se}}
+        tr._graphs = cache
+        tr.close()
+    return out
+
+
+def graphs_worker(root: str) -> None:
+    """graphs_charades (a)-(c) in a fresh process: deterministic mode
+    before CUDA starts, the Sweep/Train cell's table and dataset from
+    ``root/world.pkl``; every check runs a Trainer graphed (its default on
+    the card) and, on the same weights, eager (``Trainer._graphs = None``).
+    Prints one JSON line."""
+    enable_deterministic()
+    with open(os.path.join(root, "world.pkl"), "rb") as f:
+        config, store, dataset = pickle.load(f)
+    sub = dict(dataset, train_set=dataset["train_set"][:GRAPH_QUERIES])
+    here = os.getcwd()
+    os.chdir(root)                           # train() writes ./logs/<task>/
+    try:
+        t0 = time.perf_counter()
+        train, flat, table = graphed_vs_eager_training(root, config, store, sub, None)
+        t1 = time.perf_counter()
+        sweeps = graphed_vs_eager_sweeps(root, config, store, sub, table, flat)
+        t2 = time.perf_counter()
+    finally:
+        os.chdir(here)
+    emit({"queries": len(sub["train_set"]), "train": train, "sweeps": sweeps,
+          "seconds": {"train": t1 - t0, "sweeps": t2 - t1},
+          "deterministic": "runtime.debug.enable_deterministic() before CUDA started"})
+
+
+def graphs_phase(workdir: str, config, store, dataset, table) -> dict:
+    """Phase 12; returns the K1/K2 launches of its graphed main paths."""
+    t_phase = time.perf_counter()
+    root = os.path.join(workdir, "graphs")
+    os.makedirs(root)
+    world = os.path.join(root, "world.pkl")
+    with open(world, "wb") as f:
+        pickle.dump((config, store, dataset), f, protocol=pickle.HIGHEST_PROTOCOL)
+    env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--graphs-worker",
+                           root], capture_output=True, text=True, env=env, timeout=600)
+    worker_s = time.perf_counter() - t0
+    os.remove(world)
+    check(proc.returncode == 0, f"graphs worker exited {proc.returncode}:\n"
+                                f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    bit_equal = json.loads(proc.stdout.strip().splitlines()[-1])
+
+    # outside deterministic mode, on the Train cell: one epoch through
+    # train(), then steps and sweeps graphed and eager in turns
+    sub = dict(dataset, train_set=dataset["train_set"][:TRAIN_QUERIES])
+    cfg = train_config(config, os.path.join(workdir, "ckpt_graphs"), epochs=1)
+    cfg.suffix = "graphs"
+    log = logging.getLogger("chip_smoke.graphs")
+    tr = Trainer(cfg, sub, store, logger=log, device_features=table, device=DEVICE)
+    tr.init_state()
+    cache = tr._graphs
+    n_steps = math.ceil(TRAIN_QUERIES / TRAIN["batch_size"])
+    n_test = math.ceil(len(tr.test_set) / cfg.eval_batch_size)
+    here = os.getcwd()
+    os.chdir(workdir)                        # train() writes ./logs/<task>/
+    try:
+        reset_launches()                     # main path starts
+        t0 = time.perf_counter()
+        tr.train()
+        epoch_s = time.perf_counter() - t0
+        epoch_launches = launch_counts()     # main path ends
+    finally:
+        os.chdir(here)
+    check(epoch_launches == {"span_decode": n_steps + n_test, "fused_forward": n_test,
+                             "fused_forward_bf16": 0},
+          f"graphs: the epoch's launches {epoch_launches}")
+    loader = TrainLoader(tr.train_set, TRAIN["batch_size"], seed=cfg.train.seed)
+    orders = [torch.from_numpy(np.concatenate(list(loader.index_iter(e)))).to(DEVICE)
+              for e in (1, 2)]
+    step = [tr.state.step]
+
+    def train_steps(graphed: bool, order) -> float:
+        fn = cache.train_epoch if graphed else steps.train_epoch
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses, _ = fn(tr.model, tr.state.opt, tr._train_data, order, TRAIN["batch_size"],
+                       tr.word_vectors, TRAIN["lr"], SEED, step[0],
+                       drop_rate=TRAIN["droprate"])
+        losses.cpu()
+        step[0] += losses.numel()
+        return (time.perf_counter() - t) * 1e3 / losses.numel()
+
+    step_ms: dict[str, list] = {"graphed": [], "eager": []}
+    timed_steps = PROFILE_STEPS * TRAIN["batch_size"]
+    for graphed in (True, False, False, True):
+        step_ms["graphed" if graphed else "eager"].append(
+            train_steps(graphed, orders[0][:timed_steps]))
+    reset_launches()
+    graphed_100 = train_steps(True, orders[1])       # one full epoch of replays
+    check(launch_counts()["span_decode"] == n_steps,
+          f"graphs: {launch_counts()} for {n_steps} replayed steps")
+    one = iter(range(10 ** 6))
+
+    def graphed_step() -> None:               # one replay, no fetch
+        i = next(one) % n_steps
+        cache.train_epoch(tr.model, tr.state.opt, tr._train_data,
+                          orders[0][i * 16:(i + 1) * 16], TRAIN["batch_size"],
+                          tr.word_vectors, TRAIN["lr"], SEED, step[0] + i,
+                          drop_rate=TRAIN["droprate"])
+
+    profile = device_profile(graphed_step, calls=PROFILE_STEPS, top=8,
+                             match="span_decode")
+
+    test_s: dict[str, list] = {"graphed": [], "eager": []}
+    for graphed in (True, False, False, True):
+        tr._graphs = cache if graphed else None
+        reset_launches()
+        t0 = time.perf_counter()
+        tr.test()
+        test_s["graphed" if graphed else "eager"].append(time.perf_counter() - t0)
+        check(launch_counts() == {"span_decode": n_test, "fused_forward": n_test,
+                                  "fused_forward_bf16": 0}, f"graphs: test sweep {launch_counts()}")
+    tr._graphs = cache
+    test_profile = device_profile(tr.test, calls=1, top=8)
+    captures = cache.stats()
+    flat = to_jax_params(tr.model)
+    tr.close()
+
+    # the MC sweep at mc 0.5 over the whole train split (fused), in turns
+    mcfg = train_config(config, "", mc_droprate=0.5)
+    mc = Trainer(mcfg, dataset, store, logger=log, device_features=table, device=DEVICE)
+    mc.load_params(flat)
+    mc_cache, mc_s = mc._graphs, {"graphed": [], "eager": []}
+    n_infer = math.ceil(len(mc.train_set) / mcfg.infer_batch_size)
+    for graphed in (True, False, True):
+        mc._graphs = mc_cache if graphed else None
+        reset_launches()
+        t0 = time.perf_counter()
+        mc.infer_trainset(save_path=os.path.join(workdir, "graphs_mc.pkl"))
+        mc_s["graphed" if graphed else "eager"].append(time.perf_counter() - t0)
+        check(launch_counts() == {"span_decode": n_infer, "fused_forward": n_infer,
+                                  "fused_forward_bf16": 0}, f"graphs: MC sweep {launch_counts()}")
+    mc._graphs = mc_cache
+    captures += mc_cache.stats()
+    mc.close()
+    emit({"graphs_charades": {
+        "card": CARD[0], "bit_equal_worker": bit_equal, "worker_seconds": worker_s,
+        "epoch": {"steps": n_steps, "test_batches": n_test, "seconds": epoch_s,
+                  **tr.last_epoch_wall, "launches": epoch_launches},
+        "step_ms_in_turns": step_ms, "graphed_epoch_step_ms": graphed_100,
+        "profile_graphed_step": profile, "profile_graphed_test_sweep": test_profile,
+        "captures": captures, "test_sweep_seconds_in_turns": test_s,
+        "mc_sweep_seconds_in_turns": mc_s, "mc_sweep_batches": n_infer,
+        "reduced": {"train": f"12,408 queries -> {TRAIN_QUERIES} (worker: "
+                             f"{GRAPH_QUERIES}), 50 epochs -> 1"},
+        "seconds": time.perf_counter() - t_phase,
+        "timing": "step_ms: host clock over 20 steps ending in a fetch of the "
+                  "losses, graphed and eager in turns; graphed_epoch_step_ms: 100 "
+                  "replays; profile: torch.profiler over 20 graphed steps queued "
+                  "back to back; test and MC seconds: host clock around test() / "
+                  "infer_trainset() (pickle included), in turns; capture_seconds: "
+                  "capture and instantiation; pool_bytes: memory reserved by the "
+                  "capture"}})
+    return {"span_decode": epoch_launches["span_decode"],
+            "fused_forward": epoch_launches["fused_forward"]}
+
+
 def main(argv: list[str]) -> None:
     if argv[:1] == ["--resume-worker"]:
         resume_worker(argv[1])
         return
     if argv[:1] == ["--streaming-worker"]:
         streaming_worker(argv[1])
+        return
+    if argv[:1] == ["--graphs-worker"]:
+        graphs_worker(argv[1])
         return
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: FAILED: torch.cuda.is_available() is false")
@@ -2302,6 +2620,8 @@ def main(argv: list[str]) -> None:
             "bf16_charades", bf16_phase, workdir, config, store, dataset, table,
             f32_train, dataset["max_wlen"], resources)
         loop_launches = timed("loop_charades", loop_phase, workdir, config, warm)
+        graph_launches = timed("graphs_charades", graphs_phase, workdir, config, store,
+                               dataset, table)
     emit({"phase_seconds": seconds, "card": CARD[0]})
     emit({"kernels": [{
         "name": "span_decode", "route": "cuda",
@@ -2311,7 +2631,7 @@ def main(argv: list[str]) -> None:
                      + train_launches["train"]["span_decode"]
                      + train_launches["mc_sweep_fused"]["span_decode"]
                      + bf16_options["span_decode"] + loop_launches["span_decode"]
-                     + sum(streaming_launches.values())),
+                     + sum(streaming_launches.values()) + graph_launches["span_decode"]),
         "launches_by_path": {"serve": serve_launches,
                              "sweep_fused": sweep_launches["span_decode"],
                              "train": train_launches["train"]["span_decode"],
@@ -2319,7 +2639,8 @@ def main(argv: list[str]) -> None:
                                  train_launches["mc_sweep_fused"]["span_decode"],
                              "bf16_options": bf16_options["span_decode"],
                              "loop": loop_launches["span_decode"],
-                             **streaming_launches},
+                             **streaming_launches,
+                             "graphs": graph_launches["span_decode"]},
         "max_abs_err": k1_main["max_abs_err"],
         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
@@ -2330,13 +2651,15 @@ def main(argv: list[str]) -> None:
         "launches": (sweep_launches["fused_forward"]
                      + train_launches["train"]["fused_forward"]
                      + train_launches["mc_sweep_fused"]["fused_forward"]
-                     + bf16_options["fused_forward"] + loop_launches["fused_forward"]),
+                     + bf16_options["fused_forward"] + loop_launches["fused_forward"]
+                     + graph_launches["fused_forward"]),
         "launches_by_path": {"sweep_fused": sweep_launches["fused_forward"],
                              "train": train_launches["train"]["fused_forward"],
                              "mc_sweep_fused":
                                  train_launches["mc_sweep_fused"]["fused_forward"],
                              "bf16_options": bf16_options["fused_forward"],
-                             "loop": loop_launches["fused_forward"]},
+                             "loop": loop_launches["fused_forward"],
+                             "graphs": graph_launches["fused_forward"]},
         "max_abs_err": k2_main["max_abs_err"],
         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],

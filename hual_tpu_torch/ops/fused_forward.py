@@ -125,8 +125,14 @@ class PackedWeights:
         return self.layout["pos_emb/position_embeddings"][1][0]
 
 
-def pack_weights(model) -> PackedWeights:
-    """Pack ``model``'s K2 leaves into one buffer, once per sweep."""
+def pack_weights(model, out: PackedWeights | None = None) -> PackedWeights:
+    """Pack ``model``'s K2 leaves into one buffer, once per sweep.
+
+    With ``out`` (an earlier pack of the same model) the leaves are written
+    into ``out.buffer`` in place and ``out`` is returned: a captured CUDA
+    graph reads the buffer at the address it had at capture, so a sweep
+    that replays one refreshes the pack this way before its replays.
+    """
     from hual_tpu_torch.weights import _leaves  # the port's leaf walk
 
     leaves = {}
@@ -148,8 +154,13 @@ def pack_weights(model) -> PackedWeights:
             layout[key] = (offset, tuple(t.shape))
             offset += t.numel()
             parts.append(t.reshape(-1))
-        buffer = torch.cat(parts).contiguous()
-    return PackedWeights(buffer, layout, model.attn_layer)
+        if out is None:
+            return PackedWeights(torch.cat(parts).contiguous(), layout,
+                                 model.attn_layer)
+        if out.layout != layout or out.buffer.device != parts[0].device:
+            raise ValueError("pack_weights: out was packed for another model")
+        torch.cat(parts, out=out.buffer)
+    return out
 
 
 # -- the plain version ----------------------------------------------------------

@@ -7,7 +7,10 @@ The reference optimizer, as the JAX package runs it:
 * ``m = b1*m + (1-b1)*g``, ``v = b2*v + (1-b2)*g^2``, with NO bias
   correction;
 * ``update = m / (sqrt(v) + eps) [+ wd * p on decayed leaves]``, eps 1e-6;
-* ``p -= lr * update``, with the lr given per step.
+* ``p -= lr * update``, with the lr given per step: a Python float, or
+  the optimizer's 0-dim f32 device buffer ``lr`` (:meth:`BertAdamW.set_lr`),
+  which a captured CUDA graph reads at every replay.  Both multiply by the
+  same f32 value, so the two give the same bits.
 
 Weight decay skips every leaf whose JAX key contains ``layer_norm`` or
 ``bias``; the mask comes from the leaves' JAX keys (``weights._leaves``),
@@ -78,11 +81,21 @@ class BertAdamW:
         with torch.no_grad():           # zero moments, as the reference starts
             self.mu = [torch.zeros_like(p) for p in self.params]
             self.nu = [torch.zeros_like(p) for p in self.params]
+        self.lr = torch.zeros((), dtype=torch.float32,
+                              device=self.params[0].device if self.params else None)
 
     @torch.no_grad()
-    def step(self, grads: Sequence[torch.Tensor], lr: float) -> torch.Tensor:
-        """Apply one update from ``grads`` (aligned with ``params``); returns
-        the global grad norm before the clip, on the device."""
+    def set_lr(self, lr: float) -> None:
+        """Write ``lr`` into the device buffer ``self.lr`` (a fill on the
+        device: no host copy, no synchronisation)."""
+        self.lr.fill_(lr)
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor],
+             lr: float | torch.Tensor) -> torch.Tensor:
+        """Apply one update from ``grads`` (aligned with ``params``) at rate
+        ``lr`` (a float, or ``self.lr``); returns the global grad norm before
+        the clip, on the device."""
         grads, g_norm = clip_by_global_norm(grads, self.clip_norm)
         torch._foreach_mul_(self.mu, self.b1)
         torch._foreach_add_(self.mu, grads, alpha=1.0 - self.b1)

@@ -3,8 +3,11 @@
 
 The split lives on the device (``Trainer``): the feature table plus the
 per-sample columns.  A step gathers its batch on the device from an index
-vector; the JAX package's ``lax.scan`` over batches is a Python loop here,
-and outputs stay on the device until the caller fetches them.  Under host
+vector; the loops here run the JAX package's ``lax.scan`` over batches as
+a Python loop of eager steps, and outputs stay on the device until the
+caller fetches them.  These loops serve the CPU, host streaming and the
+ragged last train batch; on the card the device-resident loops replay the
+same steps from captured CUDA graphs (``runtime/graphs.py``).  Under host
 streaming a step takes a host batch instead: ``upload_batch`` puts it on
 the device (labels built there, as ``gather_batch`` builds them).  The
 loops take their batches from an iterator, so one loop serves both:
@@ -40,8 +43,9 @@ clean pass.
 
 Random streams: the generator of train step ``k`` is seeded from
 ``(train.seed + 17, k)``, those of sweep batch ``i`` from ``(seed, i, 0)``
-and ``(seed, i, 1)`` (``make_generator``), so a run replays from its
-counters alone.  On the card they are Philox streams; they do not give the
+and ``(seed, i, 1)`` (:func:`stream_seed`, through ``make_generator`` here
+and a reseeded generator in ``runtime/graphs.py``), so a run replays from
+its counters alone.  On the card they are Philox streams; they do not give the
 JAX package's bits, so dropout parity is distributional.
 """
 
@@ -55,11 +59,15 @@ from hual_tpu_torch.models.seqpan import seqpan_loss
 from hual_tpu_torch.ops.fused_forward import pack_weights, seqpan_forward_fused
 
 
+def stream_seed(*words: int) -> int:
+    """The seed of the random stream named by ``words``, hashed by
+    ``np.random.SeedSequence``: a pure function of its arguments."""
+    return int(np.random.SeedSequence(list(words)).generate_state(1, np.uint64)[0])
+
+
 def make_generator(device: torch.device, *words: int) -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` seeded by hashing ``words``
-    (``np.random.SeedSequence``): a pure function of its arguments."""
-    seed = int(np.random.SeedSequence(list(words)).generate_state(1, np.uint64)[0])
-    return torch.Generator(device=device).manual_seed(seed)
+    """A ``torch.Generator`` on ``device`` seeded with ``stream_seed(*words)``."""
+    return torch.Generator(device=device).manual_seed(stream_seed(*words))
 
 
 def device_ious(start_idx, end_idx, s_ind, e_ind, v_len, duration) -> torch.Tensor:
@@ -139,12 +147,13 @@ def _ious(out: dict, batch: dict) -> torch.Tensor:
                        batch["e_ind"], batch["video_seq_len"], batch["duration"])
 
 
-def train_step(model, opt, batch: dict, word_vectors: torch.Tensor, lr: float,
-               generator: torch.Generator, *, drop_rate: float,
-               match_lambda: float = 1.0) -> dict:
+def train_step(model, opt, batch: dict, word_vectors: torch.Tensor,
+               lr: float | torch.Tensor, generator: torch.Generator, *,
+               drop_rate: float, match_lambda: float = 1.0) -> dict:
     """One update of ``model``'s parameters through ``opt`` (a
-    ``BertAdamW`` over them) on a labelled batch; returns the detached loss
-    components and the IoUs of the training forward's decoded spans."""
+    ``BertAdamW`` over them) at rate ``lr`` (a float, or ``opt.lr``) on a
+    labelled batch; returns the detached loss components and the IoUs of
+    the training forward's decoded spans."""
     batch = dequantize_batch(batch)
     out = model(batch, word_vectors, batch["match_labels"], drop_rate=drop_rate,
                 generator=generator)
@@ -320,17 +329,34 @@ def infer_sweep(model, batches, word_vectors: torch.Tensor,
 
 
 @torch.inference_mode()
+def fused_eval_step(model, packed, batch: dict, word_vectors: torch.Tensor,
+                    mxu_bf16: bool = False) -> torch.Tensor:
+    """One batch's IoUs through K2 and K1 on the weights ``packed``."""
+    batch = dequantize_batch(batch)
+    return _ious(seqpan_forward_fused(model, packed, batch, word_vectors,
+                                      mxu_bf16), batch)
+
+
+@torch.inference_mode()
+def fused_infer_step(model, packed, batch: dict, word_vectors: torch.Tensor,
+                     mc_droprate: float = 0.0, generators=None, mc_model=None,
+                     mxu_bf16: bool = False) -> dict:
+    """:func:`infer_step` with the clean pass through K2 and K1 on the
+    weights ``packed`` and the stochastic passes on the eager model."""
+    batch = dequantize_batch(batch)
+    clean = seqpan_forward_fused(model, packed, batch, word_vectors, mxu_bf16)
+    mc = _mc_passes(model, batch, word_vectors, mc_droprate, generators, clean,
+                    mc_model)
+    return _infer_outputs(clean, mc, batch)
+
+
+@torch.inference_mode()
 def fused_eval_sweep(model, batches, word_vectors: torch.Tensor,
                      mxu_bf16: bool = False) -> torch.Tensor:
     """:func:`eval_sweep` through K2 and K1."""
     packed = pack_weights(model)
-    ious = []
-    for batch, n in batches:
-        batch = dequantize_batch(batch)
-        ious.append(_ious(seqpan_forward_fused(model, packed, batch,
-                                               word_vectors, mxu_bf16),
-                          batch)[:n])
-    return torch.cat(ious)
+    return torch.cat([fused_eval_step(model, packed, batch, word_vectors,
+                                      mxu_bf16)[:n] for batch, n in batches])
 
 
 @torch.inference_mode()
@@ -342,12 +368,7 @@ def fused_infer_sweep(model, batches, word_vectors: torch.Tensor,
     packed = pack_weights(model)
     outs = []
     for i, (batch, n) in enumerate(batches):
-        batch = dequantize_batch(batch)
-        clean = seqpan_forward_fused(model, packed, batch, word_vectors,
-                                     mxu_bf16)
-        mc = _mc_passes(model, batch, word_vectors, mc_droprate,
-                        _mc_generators(model, mc_droprate, word_vectors.device,
-                                       seed, i),
-                        clean, mc_model)
-        outs.append((_infer_outputs(clean, mc, batch), n))
+        gens = _mc_generators(model, mc_droprate, word_vectors.device, seed, i)
+        outs.append((fused_infer_step(model, packed, batch, word_vectors,
+                                      mc_droprate, gens, mc_model, mxu_bf16), n))
     return _valid_rows(outs)

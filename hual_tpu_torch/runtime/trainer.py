@@ -18,7 +18,13 @@ reference schema, which ``active.engine.update_labels`` reads.
 ``train.sweep_backend`` picks the eager model (``flax``) or K2 + K1
 (``fused``, with bf16 products in K2 under ``train.fused_mxu_bf16``) for the
 sweeps, see ``runtime/steps.py``; ``train.fold_mc`` folds the eager AL
-sweep's three passes into one forward.  ``model.compute_dtype`` is the eager
+sweep's three passes into one forward.  On the card the device-resident
+epoch and sweeps replay captured CUDA graphs (``runtime/graphs.py``, the
+JAX package's scanned programs), with K1 and, under ``fused``, K2 inside
+them; the CPU and host streaming run ``runtime/steps.py``'s eager loops,
+which a graphed run equals bit for bit in deterministic mode.  There is
+no switch: ``hual_tpu`` has none for its scanned programs either.
+``model.compute_dtype`` is the eager
 model's activation dtype; ``train.mc_dtype``, when it differs, runs the
 stochastic MC passes on a view of the model at that dtype that shares its
 parameters (nothing is added to ``best.npz`` or ``state.pt``).
@@ -38,7 +44,6 @@ It runs on the card (``device="cuda"``) unless the caller passes
 
 from __future__ import annotations
 
-import functools
 import os
 import time
 from dataclasses import dataclass
@@ -54,7 +59,7 @@ from hual_tpu_torch.data.loader import (EvalLoader, PackedDataset,
                                         TrainLoader, prefetch)
 from hual_tpu_torch.models import get_model_class
 from hual_tpu_torch.ops.optim import BertAdamW, count_params, make_optimizer
-from hual_tpu_torch.runtime import steps
+from hual_tpu_torch.runtime import graphs, steps
 from hual_tpu_torch.runtime.logger import get_logger
 from hual_tpu_torch.runtime.observability import MetricsWriter, StepTimer, trace
 from hual_tpu_torch.utils.io import save_pickle
@@ -159,16 +164,12 @@ class Trainer:
                 "train.sweep_backend='fused' requires a device-resident "
                 "dataset; host-streaming mode is active, using the flax "
                 "sweep backend instead")
-        if tcfg.sweep_backend == "fused" and not self.host_streaming:
-            self._eval_sweep = functools.partial(
-                steps.fused_eval_sweep, mxu_bf16=tcfg.fused_mxu_bf16)
-            self._infer_sweep = functools.partial(
-                steps.fused_infer_sweep, mc_model=self.mc_model,
-                mxu_bf16=tcfg.fused_mxu_bf16)
-        else:
-            self._eval_sweep = steps.eval_sweep
-            self._infer_sweep = functools.partial(
-                steps.infer_sweep, mc_model=self.mc_model, fold_mc=tcfg.fold_mc)
+        self._fused = tcfg.sweep_backend == "fused" and not self.host_streaming
+        # the resident loops on the card: captured CUDA graphs, built at
+        # first use, kept across epochs and sweeps (None: the eager loops)
+        self._graphs: Optional[graphs.Graphs] = None
+        if self.device.type == "cuda" and not self.host_streaming:
+            self._graphs = graphs.Graphs(self.device)
         # eval/infer index matrices depend only on the split and the batch
         # size: built and put on the device once
         self._sweep_cache: dict[str, tuple[Any, list, torch.Tensor, int]] = {}
@@ -177,11 +178,13 @@ class Trainer:
         self.last_epoch_wall: dict[str, float] = {}
 
     def close(self) -> None:
-        """Release the metrics JSONL handle (a multi-round loop builds one
-        trainer per round)."""
+        """Release the metrics JSONL handle and the captured graphs (a
+        multi-round loop builds one trainer per round)."""
         if self.metrics is not None:
             self.metrics.close()
             self.metrics = None
+        if self._graphs is not None:
+            self._graphs.close()
 
     # ------------------------------------------------------------------
     def init_state(self, seed: Optional[int] = None) -> TrainState:
@@ -268,6 +271,26 @@ class Trainer:
             self._sweep_cache[key] = cached
         return cached[1], cached[2]
 
+    def _resident_sweep(self, key: str, dataset: PackedDataset,
+                        batch_size: int) -> tuple[dict, torch.Tensor, list]:
+        """The graphed sweeps' inputs: the device split, its index matrix
+        (n_batches, B) and each batch's valid rows."""
+        data = {"infer": self._train_data, "test": self._test_data,
+                "val": self._val_data}[key]
+        pairs, sels = self._sweep_sels(key, dataset, batch_size)
+        return data, sels, [n for _, n in pairs]
+
+    def _sweep_args(self, key: str, dataset: PackedDataset) -> tuple:
+        """The loops (``self._graphs`` or ``runtime/steps.py``, whose sweeps
+        share their names) and a sweep's inputs over ``dataset``: the device
+        split, its index matrix and valid rows for the graphs, the batches
+        for the eager loops."""
+        batch_size = min(self.config.eval_batch_size if key != "infer"
+                         else self.config.infer_batch_size, len(dataset))
+        if self._graphs is None:
+            return steps, (self._sweep_batches(key, dataset, batch_size),)
+        return self._graphs, self._resident_sweep(key, dataset, batch_size)
+
     def _sweep_batches(self, key: str, dataset: PackedDataset,
                        batch_size: int) -> Iterator[tuple[dict, int]]:
         """A sweep's (device batch, n_valid) pairs over ``dataset`` in
@@ -277,10 +300,8 @@ class Trainer:
         if self.host_streaming:
             loader = EvalLoader(dataset, batch_size, pad_to_batch=True)
             return self._stream(dataset, loader.index_iter())
-        data = {"infer": self._train_data, "test": self._test_data,
-                "val": self._val_data}[key]
-        pairs, sels = self._sweep_sels(key, dataset, batch_size)
-        return steps.resident_batches(data, sels, [n for _, n in pairs])
+        return steps.resident_batches(*self._resident_sweep(key, dataset,
+                                                            batch_size))
 
     def _require_weights(self) -> None:
         if self.state is None:
@@ -290,16 +311,21 @@ class Trainer:
     def test(self, split: str = "test") -> dict[str, float]:
         """R@1@{0.3,0.5,0.7} and mIoU of a split, one sweep ending in one
         host fetch."""
+        return rank1_metrics(self._sweep_ious(split))
+
+    def _sweep_ious(self, split: str) -> np.ndarray:
+        """The split's IoUs from one eval sweep, graphed on the card."""
         self._require_weights()
         ds = {"test": self.test_set, "val": self.val_set}[split]
         if ds is None:
             raise ValueError(f"{split} set is not available")
-        batch_size = min(self.config.eval_batch_size, len(ds))
         with trace(f"eval_sweep_{split}"):
-            ious = self._eval_sweep(self.model,
-                                    self._sweep_batches(split, ds, batch_size),
-                                    self.word_vectors).cpu().numpy()
-        return rank1_metrics(ious)
+            loops, inputs = self._sweep_args(split, ds)
+            args = (self.model, *inputs, self.word_vectors)
+            ious = (loops.fused_eval_sweep(
+                        *args, mxu_bf16=self.config.train.fused_mxu_bf16)
+                    if self._fused else loops.eval_sweep(*args))
+            return ious.cpu().numpy()
 
     def infer_trainset(self, save_path: Optional[str] = None,
                        seed: Optional[int] = None) -> dict[str, float]:
@@ -311,12 +337,14 @@ class Trainer:
         seed = cfg.train.seed if seed is None else seed
         if save_path is None:
             save_path = f"./results/{cfg.task}/{cfg.suffix}.pkl"
-        batch_size = min(cfg.infer_batch_size, len(self.train_set))
         with trace("infer_sweep"):
-            outs = self._infer_sweep(
-                self.model, self._sweep_batches("infer", self.train_set,
-                                                batch_size),
-                self.word_vectors, cfg.train.mc_droprate, seed)
+            loops, inputs = self._sweep_args("infer", self.train_set)
+            args = (self.model, *inputs, self.word_vectors,
+                    cfg.train.mc_droprate, seed, self.mc_model)
+            outs = (loops.fused_infer_sweep(*args,
+                                            mxu_bf16=cfg.train.fused_mxu_bf16)
+                    if self._fused
+                    else loops.infer_sweep(*args, fold_mc=cfg.train.fold_mc))
             host = {k: v.cpu().numpy() for k, v in outs.items()}
 
         save_list = []
@@ -388,9 +416,12 @@ class Trainer:
                         drop_rate=tcfg.droprate,
                         match_lambda=cfg.loss.match_lambda)
                 else:
+                    # graphed on the card: the full batches replay one
+                    # captured step, the ragged rest runs eager
                     order = torch.from_numpy(np.concatenate(
                         list(loader.index_iter(epoch)))).to(self.device)
-                    losses, ious = steps.train_epoch(
+                    loops = steps if self._graphs is None else self._graphs
+                    losses, ious = loops.train_epoch(
                         self.model, state.opt, self._train_data, order,
                         loader.batch_size, self.word_vectors, cur_lr,
                         tcfg.seed + 17, state.step, drop_rate=tcfg.droprate,
