@@ -7,5 +7,6 @@ decode kernel (K1); the data pipeline, training and the eval and
 AL-inference sweeps (``runtime.trainer.Trainer``, its table on the card or
 streamed from the host) with the fused-forward kernel (K2); the AL round
 engine (``active``), the in-process round loop (``orchestrate``), the
-command line (``cli``) and the native feature loader (``native``).
+command line (``cli``), the native feature loader (``native``) and data
+parallelism on ``torch.distributed`` (``parallel``).
 """

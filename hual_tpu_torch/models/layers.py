@@ -10,7 +10,16 @@ here is its path in a bundle's ``params.npz``.
 A pass is stochastic iff it is given a ``torch.Generator``: dropout and the
 matching head's gumbel noise draw from it, and without one the pass is the
 deterministic one (JAX's ``deterministic=True``).  ``module.train()`` and
-``.eval()`` change nothing.
+``.eval()`` change nothing.  Under data parallelism the generator is a
+``parallel.RowDraws``: every draw takes the global batch's shape and keeps
+this rank's rows, so a sharded pass draws the unsharded pass's masks.
+
+The losses take the batch's ``parallel.Rows`` (this rank's rows of the
+global batch; None for a whole batch) and return this rank's share of the
+global loss, so the shares summed over the data group are the global loss
+and every term counts once: the match loss's mask count and the localizing
+loss's batch size are the global batch's, and the alignment loss's (B x B)
+softmax runs over the whole batch, this rank's rows of it.
 
 Activations run in the dtype they arrive in (f32 or bf16, the model's
 ``compute_dtype``), as in the JAX package: parameters stay f32 and are cast
@@ -30,6 +39,7 @@ from torch import nn
 
 from hual_tpu_torch.models.initializers import glorot_uniform_tf
 from hual_tpu_torch.ops.masking import attention_bias, mask_logits
+from hual_tpu_torch.parallel import Rows, gather_rows, sum_over, uniform
 
 Rate = Union[float, torch.Tensor]
 
@@ -40,14 +50,14 @@ def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float())
 
 
-def dropout(x: torch.Tensor, rate: Rate,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: Rate, generator) -> torch.Tensor:
     """Inverted dropout with the rate as a value (tf.nn.dropout semantics).
 
     ``rate`` is a scalar or a per-sample ``(B,)`` vector.  The keep mask is
     ``rand < 1 - rate`` with ``rand`` in [0, 1), so a rate-0 row keeps every
     element and equals a deterministic pass bit for bit.  No generator, or a
-    scalar rate of 0, returns ``x`` without drawing.
+    scalar rate of 0, returns ``x`` without drawing.  ``generator`` is a
+    ``torch.Generator`` or a ``parallel.RowDraws``.
     """
     if generator is None:
         return x
@@ -62,8 +72,7 @@ def dropout(x: torch.Tensor, rate: Rate,
         # a Python float stays on the host: a device scalar made from it
         # would be a blocking copy at every site
         keep, inv = 1.0 - rate, 1.0 / (1.0 - rate)
-    u = torch.rand(x.shape, generator=generator, device=x.device,
-                   dtype=torch.float32)
+    u = uniform(x.shape, generator, x.device)
     return torch.where(u < keep, x * inv, 0.0)
 
 
@@ -313,12 +322,15 @@ class MatchingHead(nn.Module):
         self.label_size, self.tau, self.gumbel = label_size, tau, gumbel
         self.dense = Conv1D(dim, label_size, True)
 
-    def forward(self, inputs, labels, mask, generator=None):
+    def forward(self, inputs, labels, mask, generator=None,
+                rows: Optional[Rows] = None):
+        """(this rank's share of the masked CE, the class probabilities):
+        the masked sum over the mask count of the global batch (``rows``'s
+        group)."""
         logits = self.dense(inputs).float()
         if self.gumbel:
             if generator is not None:
-                u = torch.rand(logits.shape, generator=generator,
-                               device=logits.device, dtype=logits.dtype)
+                u = uniform(logits.shape, generator, logits.device, logits.dtype)
                 logits = logits - torch.log(-torch.log(u + 1e-20) + 1e-20)
             logits = logits / self.tau
         log_probs = torch.log_softmax(logits, dim=-1)
@@ -329,17 +341,20 @@ class MatchingHead(nn.Module):
         onehot = (labels.long()[..., None] == classes).to(logits.dtype)
         per_pos = -(onehot * log_probs).sum(dim=-1)
         m = mask.to(logits.dtype)
-        loss = (per_pos * m).sum() / (m.sum() + 1e-12)
+        loss = (per_pos * m).sum() / (sum_over(m.sum(), rows) + 1e-12)
         return loss, probs
 
 
-def localizing_loss(start_logits, end_logits, y1, y2, mask) -> torch.Tensor:
-    """Masked softmax-CE of the start/end logits against soft labels."""
+def localizing_loss(start_logits, end_logits, y1, y2, mask,
+                    rows: Optional[Rows] = None) -> torch.Tensor:
+    """Masked softmax-CE of the start/end logits against soft labels,
+    averaged over the global batch (this rank's sum over its size)."""
     sl = mask_logits(start_logits, mask)
     el = mask_logits(end_logits, mask)
     start_losses = -(y1 * torch.log_softmax(sl, dim=-1)).sum(dim=-1)
     end_losses = -(y2 * torch.log_softmax(el, dim=-1)).sum(dim=-1)
-    return (start_losses + end_losses).mean()
+    total = start_losses.shape[0] if rows is None else rows.total
+    return (start_losses + end_losses).sum() / total
 
 
 def _l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -355,11 +370,18 @@ def _kl_for_log_probs(log_p: torch.Tensor, log_q: torch.Tensor) -> torch.Tensor:
     return (p * log_p).sum(dim=-1) - (p * log_q).sum(dim=-1)
 
 
-def alignment_loss(tfeat, vfeat, tmask, vmask, inner_label) -> torch.Tensor:
+def alignment_loss(tfeat, vfeat, tmask, vmask, inner_label,
+                   rows: Optional[Rows] = None) -> torch.Tensor:
     """Video-level contrastive KL, with both reference quirks: the query
     mean-pool sums over padded positions and divides by the mask count, and
     ``_kl_for_log_probs`` gets probabilities where log-probabilities are
-    expected."""
+    expected.
+
+    A cross-sample loss: each sample's softmax runs over the videos of the
+    whole batch.  This rank computes its rows of the (B x B) similarities
+    against every rank's pooled videos (``gather_rows``, whose backward
+    hands each rank the gradient of its videos from every row) and returns
+    the KL summed over its rows."""
     tsum = tfeat.sum(dim=1)                                         # (B, D)
     tcount = tmask.sum(dim=1, keepdim=True).to(tsum.dtype)
     tfeat_n = _l2_normalize(tsum / tcount, dim=1)
@@ -369,8 +391,9 @@ def alignment_loss(tfeat, vfeat, tmask, vmask, inner_label) -> torch.Tensor:
     vsum = (vfeat * frame_w[:, :, None]).sum(dim=1)
     vfeat_n = _l2_normalize(vsum, dim=1)
 
-    video_sim = torch.softmax(vfeat_n @ vfeat_n.T, dim=-1)
-    query_sim = torch.softmax(tfeat_n @ vfeat_n.T, dim=-1)
+    videos = gather_rows(vfeat_n, rows)                             # (B, D)
+    video_sim = torch.softmax(vfeat_n @ videos.T, dim=-1)
+    query_sim = torch.softmax(tfeat_n @ videos.T, dim=-1)
     kl = (_kl_for_log_probs(torch.log(query_sim), video_sim)
           + _kl_for_log_probs(torch.log(video_sim), query_sim))
     return kl.sum()

@@ -11,7 +11,13 @@ losses, so one forward serves train, eval and MC-dropout passes.
 
 ``compute_dtype`` ("float32" or "bfloat16") is the activation dtype after
 the embeddings, as in the JAX package; the logits, the CQ features and
-everything loss-facing leave in f32.  :meth:`SeqPAN.with_compute_dtype` is
+everything loss-facing leave in f32.
+
+Under data parallelism a pass runs on this rank's rows of the global batch
+(``rows``, a ``parallel.Rows``): its draws are those rows of the global
+batch's draws, and :func:`seqpan_loss` returns this rank's share of the
+global loss, the label-embedding penalty counted once (on the data group's
+first rank).  :meth:`SeqPAN.with_compute_dtype` is
 the JAX package's ``model.clone(compute_dtype=...)``: the same modules and
 parameters at another activation dtype.
 """
@@ -36,6 +42,7 @@ from hual_tpu_torch.models.modules import (CharEmbedding, ConditionedPredictor,
 from hual_tpu_torch.ops.decode import span_decode as span_decode_plain
 from hual_tpu_torch.ops.kernels import span_decode as span_decode_kernel
 from hual_tpu_torch.ops.masking import sequence_mask
+from hual_tpu_torch.parallel import Rows, row_draws
 
 
 class SeqPAN(nn.Module):
@@ -109,11 +116,15 @@ class SeqPAN(nn.Module):
                 match_labels: Optional[torch.Tensor] = None, *,
                 drop_rate: Rate = 0.0,
                 generator: Optional[torch.Generator] = None,
-                decode: bool = True) -> dict[str, torch.Tensor]:
+                decode: bool = True,
+                rows: Optional[Rows] = None) -> dict[str, torch.Tensor]:
         """One pass; stochastic (dropout at ``drop_rate``, a scalar or a
         per-sample vector, and gumbel noise) iff ``generator`` is given.
         ``decode=False`` skips the span decode (the MC passes keep only
-        their logits): the outputs then have no indices."""
+        their logits): the outputs then have no indices.  ``rows``: the
+        batch is this rank's rows of a global batch (draws and, with
+        ``match_labels``, the match loss take the global batch's)."""
+        generator = row_draws(generator, rows)
         v_mask = sequence_mask(batch["video_seq_len"], self.max_vlen)
         q_mask = (batch["word_ids"] != 0).to(torch.int32)
         drop = dict(drop_rate=drop_rate, generator=generator)
@@ -139,11 +150,13 @@ class SeqPAN(nn.Module):
 
         labels = match_labels if match_labels is not None else torch.zeros(
             fuse_feats.shape[:2], dtype=torch.int32, device=fuse_feats.device)
-        match_loss, match_scores = self.matching_head(fuse_feats, labels,
-                                                      v_mask, generator)
-        eye = torch.eye(4, device=self.label_emb.device)
-        ortho = self.label_emb @ self.label_emb.T * (1.0 - eye)
-        match_loss = match_loss + ortho.square().sum().sqrt()
+        match_loss, match_scores = self.matching_head(
+            fuse_feats, labels, v_mask, generator,
+            rows if match_labels is not None else None)
+        if rows is None or rows.lo == 0:
+            eye = torch.eye(4, device=self.label_emb.device)
+            ortho = self.label_emb @ self.label_emb.T * (1.0 - eye)
+            match_loss = match_loss + ortho.square().sum().sqrt()
 
         soft_label_embs = (match_scores @ self.label_emb).to(dt)
         outputs = (fuse_feats + soft_label_embs) * v_mask[:, :, None].to(dt)
@@ -176,14 +189,15 @@ def _check_dtype(name: str) -> str:
 
 
 def seqpan_loss(outputs: dict[str, torch.Tensor], batch: dict[str, torch.Tensor],
-                match_lambda: float = 1.0
+                match_lambda: float = 1.0, rows: Optional[Rows] = None
                 ) -> tuple[torch.Tensor, dict[str, Any]]:
-    """Total loss = loc + lambda*match + 1.0*align."""
+    """Total loss = loc + lambda*match + 1.0*align (this rank's share of
+    each under ``rows``; the forward must have had the same ``rows``)."""
     loc = localizing_loss(outputs["start_logits"], outputs["end_logits"],
-                          batch["y1"], batch["y2"], outputs["v_mask"])
+                          batch["y1"], batch["y2"], outputs["v_mask"], rows)
     align = alignment_loss(outputs["v2q_feats"], outputs["q2v_feats"],
                            outputs["q_mask"], outputs["v_mask"],
-                           batch["inner_labels"])
+                           batch["inner_labels"], rows)
     total = loc + match_lambda * outputs["match_loss"] + align * 1.0
     return total, {"loc_loss": loc, "match_loss": outputs["match_loss"],
                    "align_loss": align, "loss": total}

@@ -15,6 +15,15 @@ labels) is the CLI's ``--suffix re0`` train and infer_trainset.
 ``--deterministic`` turns on deterministic mode
 (``runtime/debug.enable_deterministic``), under which a round resumed from
 its ``state.pt`` replays the uninterrupted one bit for bit.
+
+Data parallel under ``torchrun`` (see ``cli``):
+
+    torchrun --nproc_per_node=N -m hual_tpu_torch.orchestrate charades
+
+Every rank trains and infers on its rows of each batch (``parallel/``);
+rank 0 alone updates the labels (``train.json``) and writes the round's
+YAML, the summary and the checkpoints, the other ranks waiting at a
+barrier and then reading them.
 """
 
 from __future__ import annotations
@@ -22,10 +31,14 @@ from __future__ import annotations
 import argparse
 import json
 import os
+from typing import Optional
+
+import torch.distributed as dist
 
 from hual_tpu_torch import cli
 from hual_tpu_torch.active.engine import update_labels
 from hual_tpu_torch.config import Config
+from hual_tpu_torch.parallel import Mesh
 from hual_tpu_torch.runtime.debug import enable_deterministic
 from hual_tpu_torch.runtime.logger import get_logger
 
@@ -45,7 +58,8 @@ def run_rounds(task: str, rounds: int | None = None,
                point_strategy: str = "uncertainty",
                selection: str = "half",
                strategy_seed: int = 12345,
-               device: str = "cuda") -> list[dict]:
+               device: str = "cuda",
+               mesh: Optional[Mesh] = None) -> list[dict]:
     """The HUAL loop from ``start_round`` to ``rounds``; returns per-round
     label stats and metrics, also written to
     ``<results_root>/<task>/rounds_summary.json``.
@@ -65,11 +79,16 @@ def run_rounds(task: str, rounds: int | None = None,
     ``{"features": t.features, "device_features":
     t.export_device_features(), "dataset": t.dataset}``, so round 1 neither
     uploads the table again nor re-tokenizes the corpus.
+
+    Under ``mesh`` (a ``parallel.Mesh`` on a process group) every rank runs
+    the loop; rank 0 alone writes the labels, the configs, the summary and
+    the checkpoints, and every rank returns the same history.
     """
     rounds = rounds or DEFAULT_ROUNDS.get(task, 3)
     base_config_path = base_config_path or DEFAULT_CONFIGS[task]
     base = Config.load(base_config_path)
-    logger = get_logger(f"./logs/{task}", "rounds")
+    writer = mesh is None or mesh.is_writer
+    logger = get_logger(f"./logs/{task}", "rounds", to_file=writer)
     summary_path = os.path.join(results_root, task, "rounds_summary.json")
     history = []
     if start_round > 1 and os.path.exists(summary_path):
@@ -87,15 +106,16 @@ def run_rounds(task: str, rounds: int | None = None,
                                data_root, results_root, logger, history,
                                shared, point_strategy=point_strategy,
                                selection=selection, strategy_seed=strategy_seed,
-                               device=device)
+                               device=device, mesh=mesh)
                 break
             except Exception:
                 logger.exception(f"round re{round_idx} attempt {attempt} failed")
                 if attempt == max_retries:
                     raise
-        os.makedirs(os.path.dirname(summary_path), exist_ok=True)
-        with open(summary_path, "w") as f:
-            json.dump(history, f, indent=2)
+        if writer:
+            os.makedirs(os.path.dirname(summary_path), exist_ok=True)
+            with open(summary_path, "w") as f:
+                json.dump(history, f, indent=2)
     return history
 
 
@@ -104,15 +124,29 @@ def _run_one_round(task, round_idx, base, base_config_path, data_root,
                    point_strategy: str = "uncertainty",
                    selection: str = "half",
                    strategy_seed: int = 12345,
-                   device: str = "cuda") -> None:
+                   device: str = "cuda", mesh: Optional[Mesh] = None) -> None:
     shared = {} if shared is None else shared
+    writer = mesh is None or mesh.is_writer
 
     logger.info(f"=== round re{round_idx}: update labels "
                 f"({point_strategy}/{selection}) ===")
-    stats = update_labels(task, round_idx, data_root=data_root,
-                          results_root=results_root,
-                          point_strategy=point_strategy, selection=selection,
-                          seed=strategy_seed)
+    cfg = base.derive_round(round_idx, data_root=data_root)
+    stem, ext = os.path.splitext(base_config_path)
+    with cli.writer_first(mesh):
+        # rank 0 writes the labels (train.json) and the derived config next
+        # to the base one (reference generate_configs writes
+        # SeqPAN_re<I>.yaml); every rank reads them after
+        stats = (update_labels(task, round_idx, data_root=data_root,
+                               results_root=results_root,
+                               point_strategy=point_strategy,
+                               selection=selection, seed=strategy_seed)
+                 if writer else None)
+        if writer:
+            cfg.save(f"{stem}_re{round_idx}{ext}")
+    if mesh is not None:
+        box = [stats]
+        dist.broadcast_object_list(box, src=0)
+        stats = box[0]
     logger.info(f"pseudo-label mIoU {stats['old_miou']:.4f} -> "
                 f"{stats['new_miou']:.4f}")
     # the share of this round's annotated records that round I-1 annotated
@@ -127,12 +161,6 @@ def _run_one_round(task, round_idx, base, base_config_path, data_root,
         # committed to `shared` only at the end of the round, so a retry
         # compares against round I-1, not against its own first attempt
 
-    cfg = base.derive_round(round_idx, data_root=data_root)
-    # the derived config next to the base one (reference generate_configs
-    # writes SeqPAN_re<I>.yaml)
-    stem, ext = os.path.splitext(base_config_path)
-    cfg.save(f"{stem}_re{round_idx}{ext}")
-
     logger.info(f"=== round re{round_idx}: train ===")
     # the reused table and tokenized dataset hold for one feature set and
     # padding bound only: drop them when (feature_path, max_vlen) changes
@@ -144,7 +172,8 @@ def _run_one_round(task, round_idx, base, base_config_path, data_root,
     trainer = cli.build_trainer(cfg, features=shared.get("features"),
                                 device_features=shared.get("device_features"),
                                 base_dataset=shared.get("dataset"),
-                                device=device)
+                                device=device,
+                                **({} if mesh is None else {"mesh": mesh}))
     shared["features"] = trainer.features
     shared["device_features"] = trainer.export_device_features()
     shared["dataset"] = trainer.dataset
@@ -159,7 +188,7 @@ def _run_one_round(task, round_idx, base, base_config_path, data_root,
         logger.info(f"resuming re{round_idx} from {state_path} "
                     f"(epoch {trainer.state.epoch})")
     best = trainer.train()
-    if os.path.exists(state_path):
+    if writer and os.path.exists(state_path):
         os.remove(state_path)
 
     logger.info(f"=== round re{round_idx}: infer train set ===")
@@ -176,7 +205,9 @@ def _run_one_round(task, round_idx, base, base_config_path, data_root,
         shared["prev_selected_idx"] = selected
 
 
-def main(argv=None) -> int:
+def main(argv=None, *, device: Optional[str] = None,
+         init_method: Optional[str] = None) -> int:
+    """The command line; ``device`` and ``init_method`` as ``cli.main``'s."""
     parser = argparse.ArgumentParser()
     parser.add_argument("task", choices=["charades", "anet"])
     parser.add_argument("--rounds", type=int, default=None)
@@ -197,10 +228,16 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if args.deterministic:
         enable_deterministic()
-    run_rounds(args.task, rounds=args.rounds, base_config_path=args.config,
-               start_round=args.start_round,
-               point_strategy=args.point_strategy, selection=args.selection,
-               strategy_seed=args.strategy_seed)
+    mesh = cli.init_distributed(device or "cuda", init_method)
+    try:
+        run_rounds(args.task, rounds=args.rounds, base_config_path=args.config,
+                   start_round=args.start_round,
+                   point_strategy=args.point_strategy, selection=args.selection,
+                   strategy_seed=args.strategy_seed,
+                   **cli.trainer_kwargs(mesh, device))
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
     return 0
 
 

@@ -36,6 +36,17 @@ K1's and K2's launch counters tick in their wrappers, which a replay does
 not call: each graph takes back the launches its capture counted and adds
 them on every replay, so the counters still count launches on the card.
 
+Under data parallelism (``mesh``, a ``parallel.Mesh`` on a process group)
+each program is ``runtime/steps.py``'s sharded step: it reads the table by
+the owned-rows gather, sums the gradients over the data group, and gathers
+its outputs, so the collectives are captured inside the graph and every
+rank replays the same graphs in the same order.  That needs NCCL, whose
+collectives are captured on the capture stream after the warm-up step has
+run them once (their communicators made).  Gloo copies through the host
+and cannot be captured: the Trainer runs the eager loops of
+``runtime/steps.py`` when its mesh's backend is not NCCL
+(``capturable``), never by catching a failed capture.
+
 With ``capture=False`` the programs run eagerly, each call as it is: the CPU
 tests hold them against ``runtime/steps.py`` and the JAX package.
 """
@@ -50,11 +61,18 @@ import torch
 from hual_tpu_torch.ops.fused_forward import PackedWeights, pack_weights
 from hual_tpu_torch.ops.kernels import fused_forward as k2
 from hual_tpu_torch.ops.kernels import span_decode as k1
+from hual_tpu_torch.parallel import Mesh
 from hual_tpu_torch.runtime import steps
 
 # the kernels' launch counters: K1, K2's f64 and bf16 product paths
 _COUNTERS = ((k1.span_decode, "launches"), (k2.fused_forward, "launches"),
              (k2.fused_forward, "launches_bf16"))
+
+
+def capturable(mesh: Optional[Mesh]) -> bool:
+    """Whether the loops under ``mesh`` can be captured: on one device, or
+    over NCCL.  Gloo's collectives copy through the host."""
+    return mesh is None or not mesh.distributed or mesh.backend == "nccl"
 
 
 def _launch_counts() -> list[int]:
@@ -227,14 +245,14 @@ class Graphs:
     def train_epoch(self, model, opt, data: dict, order: torch.Tensor,
                     batch_size: int, word_vectors: torch.Tensor, lr: float,
                     seed: int, step0: int, *, drop_rate: float,
-                    match_lambda: float = 1.0
+                    match_lambda: float = 1.0, mesh: Optional[Mesh] = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
         """``steps.train_epoch`` with the full batches replayed from one
         captured train step (``make_train_epoch_indexed``'s scan) and the
         ragged rest, if any, as one eager step (``hual_tpu``'s extra
         per-step call).  ``lr`` goes into ``opt.lr`` first; step ``k``
         draws from ``(seed, step0 + k)``.  Returns (losses (n_steps,), ious
-        (n,)), on the device."""
+        (n,)), on the device; under ``mesh`` the global batches'."""
         opt.set_lr(lr)
         n = order.numel()
         n_full = n // batch_size
@@ -242,18 +260,21 @@ class Graphs:
                              device=order.device)
         ious = torch.empty(n, dtype=torch.float32, device=order.device)
         if n_full:
+            rows = steps.batch_rows(mesh, batch_size)
+
             def body_of(sel, generators):
                 def body():
-                    batch = steps.gather_batch(data, sel, with_labels=True)
+                    batch = steps.gather_batch(data, sel, with_labels=True,
+                                               rows=rows)
                     m = steps.train_step(model, opt, batch, word_vectors, opt.lr,
                                          generators[0], drop_rate=drop_rate,
-                                         match_lambda=match_lambda)
+                                         match_lambda=match_lambda, rows=rows)
                     return {"loss": m["loss"], "ious": m["ious"]}
                 return body
 
             program = self._program("train_step", data,
                                     (model, opt, word_vectors),
-                                    (drop_rate, match_lambda), batch_size,
+                                    (drop_rate, match_lambda, rows), batch_size,
                                     order.dtype, 1, body_of)
             sels = order[:n_full * batch_size].view(n_full, batch_size)
             for i in range(n_full):
@@ -262,12 +283,14 @@ class Graphs:
                     [losses[i], ious[i * batch_size:(i + 1) * batch_size]],
                     [out["loss"], out["ious"]])
         if n > n_full * batch_size:
+            # not ``rows``: the program's step reads that name at each call
+            rest = steps.batch_rows(mesh, n - n_full * batch_size)
             batch = steps.gather_batch(data, order[n_full * batch_size:],
-                                       with_labels=True)
+                                       with_labels=True, rows=rest)
             metrics = steps.train_step(
                 model, opt, batch, word_vectors, opt.lr,
                 steps.make_generator(word_vectors.device, seed, step0 + n_full),
-                drop_rate=drop_rate, match_lambda=match_lambda)
+                drop_rate=drop_rate, match_lambda=match_lambda, rows=rest)
             losses[n_full].copy_(metrics["loss"])
             ious[n_full * batch_size:].copy_(metrics["ious"])
         return losses, ious
@@ -295,41 +318,43 @@ class Graphs:
 
     @torch.inference_mode()
     def eval_sweep(self, model, data: dict, sels: torch.Tensor, n_valid,
-                   word_vectors: torch.Tensor) -> torch.Tensor:
+                   word_vectors: torch.Tensor, rows=None) -> torch.Tensor:
         """``steps.eval_sweep`` over the rows of ``sels`` (n_batches, B) of
         the resident split ``data``, ``n_valid`` valid rows each (all if
-        None): ``make_eval_sweep_indexed``.  Returns the valid rows' IoUs."""
+        None): ``make_eval_sweep_indexed``.  Returns the valid rows' IoUs.
+        ``rows``: each batch runs this rank's rows of its row of ``sels``."""
         def body_of(sel, _):
             return lambda: {"ious": steps.eval_step(
-                model, steps.gather_batch(data, sel), word_vectors)["ious"]}
+                model, steps.gather_batch(data, sel, rows=rows), word_vectors,
+                rows)["ious"]}
 
-        program = self._program("eval_sweep", data, (model, word_vectors), (),
-                                sels.shape[1], sels.dtype, 0, body_of)
+        program = self._program("eval_sweep", data, (model, word_vectors),
+                                (rows,), sels.shape[1], sels.dtype, 0, body_of)
         return self._sweep(program, sels, n_valid)["ious"]
 
     @torch.inference_mode()
     def fused_eval_sweep(self, model, data: dict, sels: torch.Tensor, n_valid,
                          word_vectors: torch.Tensor,
-                         mxu_bf16: bool = False) -> torch.Tensor:
+                         mxu_bf16: bool = False, rows=None) -> torch.Tensor:
         """:meth:`eval_sweep` through K2 and K1
         (``make_fused_eval_sweep_indexed``)."""
         packed = self._pack(model)
 
         def body_of(sel, _):
             return lambda: {"ious": steps.fused_eval_step(
-                model, packed, steps.gather_batch(data, sel), word_vectors,
-                mxu_bf16)}
+                model, packed, steps.gather_batch(data, sel, rows=rows),
+                word_vectors, mxu_bf16, rows)}
 
         program = self._program("fused_eval_sweep", data,
-                                (model, word_vectors, packed), (mxu_bf16,),
+                                (model, word_vectors, packed), (mxu_bf16, rows),
                                 sels.shape[1], sels.dtype, 0, body_of)
         return self._sweep(program, sels, n_valid)["ious"]
 
     @torch.inference_mode()
     def infer_sweep(self, model, data: dict, sels: torch.Tensor, n_valid,
                     word_vectors: torch.Tensor, mc_droprate: float = 0.0,
-                    seed: int = 0, mc_model=None, fold_mc: bool = False
-                    ) -> dict:
+                    seed: int = 0, mc_model=None, fold_mc: bool = False,
+                    rows=None) -> dict:
         """``steps.infer_sweep`` over :meth:`eval_sweep`'s rows
         (``make_infer_sweep_indexed``): the clean pass and the MC passes,
         sequential, folded (``fold_mc``) or through ``mc_model``; batch
@@ -338,20 +363,20 @@ class Graphs:
 
         def body_of(sel, generators):
             return lambda: steps.infer_step(
-                model, steps.gather_batch(data, sel), word_vectors,
-                mc_droprate, generators or None, mc_model, fold_mc)
+                model, steps.gather_batch(data, sel, rows=rows), word_vectors,
+                mc_droprate, generators or None, mc_model, fold_mc, rows)
 
         program = self._program("infer_sweep", data,
                                 (model, word_vectors, mc_model),
-                                (mc_droprate, fold_mc), sels.shape[1],
+                                (mc_droprate, fold_mc, rows), sels.shape[1],
                                 sels.dtype, n_gen, body_of)
         return self._sweep(program, sels, n_valid, seed)
 
     @torch.inference_mode()
     def fused_infer_sweep(self, model, data: dict, sels: torch.Tensor, n_valid,
                           word_vectors: torch.Tensor, mc_droprate: float = 0.0,
-                          seed: int = 0, mc_model=None, mxu_bf16: bool = False
-                          ) -> dict:
+                          seed: int = 0, mc_model=None, mxu_bf16: bool = False,
+                          rows=None) -> dict:
         """:meth:`infer_sweep` with the clean pass through K2 and K1
         (``make_fused_infer_sweep_indexed``); the same outputs and streams."""
         packed = self._pack(model)
@@ -359,11 +384,12 @@ class Graphs:
 
         def body_of(sel, generators):
             return lambda: steps.fused_infer_step(
-                model, packed, steps.gather_batch(data, sel), word_vectors,
-                mc_droprate, generators or None, mc_model, mxu_bf16)
+                model, packed, steps.gather_batch(data, sel, rows=rows),
+                word_vectors, mc_droprate, generators or None, mc_model,
+                mxu_bf16, rows)
 
         program = self._program("fused_infer_sweep", data,
                                 (model, word_vectors, packed, mc_model),
-                                (mc_droprate, mxu_bf16), sels.shape[1],
+                                (mc_droprate, mxu_bf16, rows), sels.shape[1],
                                 sels.dtype, n_gen, body_of)
         return self._sweep(program, sels, n_valid, seed)

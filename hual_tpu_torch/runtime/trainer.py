@@ -38,12 +38,27 @@ each step's generator of the global step.  On the card that replay is bit
 for bit only in deterministic mode (``runtime/debug.enable_deterministic``,
 the ``--deterministic`` flag of ``cli`` and ``orchestrate``).
 
+Data parallelism (``mesh``, a ``parallel.Mesh`` built on a process group,
+as ``hual_tpu``'s ``Trainer(mesh=)``): every rank holds the same weights
+and runs its rows of every batch (``runtime/steps.py``); the feature table
+is row-sharded over every rank (the residency budget is then per rank: the
+table's GB over the number of shards) and the GloVe matrix over the model
+group; host streaming gathers, and quantizes, only this rank's rows.  A
+batch the data axis does not divide runs whole on every rank.  ``test()``
+and ``infer_trainset()`` return the global results on every rank; rank 0
+alone writes the logs, the metrics, ``best.npz``, ``state.pt`` and the
+round pickle, and the other ranks wait for it at a barrier.  The graphs are
+captured over NCCL only (``graphs.capturable``); under gloo the loops run
+eager.  A mesh built on a group takes the sharded path at world size 1
+too; without a mesh, or with the local one, nothing changes.
+
 It runs on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; without a card it raises.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import time
 from dataclasses import dataclass
@@ -59,6 +74,7 @@ from hual_tpu_torch.data.loader import (EvalLoader, PackedDataset,
                                         TrainLoader, prefetch)
 from hual_tpu_torch.models import get_model_class
 from hual_tpu_torch.ops.optim import BertAdamW, count_params, make_optimizer
+from hual_tpu_torch.parallel import Mesh, RowShard
 from hual_tpu_torch.runtime import graphs, steps
 from hual_tpu_torch.runtime.logger import get_logger
 from hual_tpu_torch.runtime.observability import MetricsWriter, StepTimer, trace
@@ -68,7 +84,8 @@ from hual_tpu_torch.weights import load_jax_params, to_jax_params
 
 _FEATURE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                    "int8": torch.int8}
-_DeviceTable = tuple[torch.Tensor, Optional[torch.Tensor]]
+# (table, int8 scales or None); each a RowShard under a mesh
+_DeviceTable = tuple[Any, Optional[Any]]
 
 
 @dataclass
@@ -86,7 +103,8 @@ class Trainer:
     def __init__(self, config: Config, dataset: dict,
                  feature_store: FeatureStore, logger=None,
                  device_features: Optional[_DeviceTable] = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
         tcfg = config.train
         if self.device.type == "cuda":
@@ -94,8 +112,12 @@ class Trainer:
         self.config = config
         self.dataset = dataset
         self.features = feature_store
+        # the sharded path runs on a mesh built on a process group only
+        self.mesh = mesh if mesh is not None and mesh.distributed else None
+        self.is_writer = self.mesh is None or self.mesh.is_writer
         self.logger = logger or get_logger(f"./logs/{config.task}",
-                                           config.suffix or "run")
+                                           config.suffix or "run",
+                                           to_file=self.is_writer)
 
         max_wlen, max_clen = dataset["max_wlen"], dataset["max_clen"]
         self.train_set = PackedDataset(dataset["train_set"], feature_store,
@@ -113,15 +135,22 @@ class Trainer:
         # the stochastic MC passes' model (hual_tpu Trainer._mc_model)
         self.mc_model = (None if tcfg.mc_dtype == config.model.compute_dtype
                          else self.model.with_compute_dtype(tcfg.mc_dtype))
-        self.word_vectors = torch.as_tensor(
-            np.asarray(dataset["word_vector"], np.float32), device=self.device)
+        vectors = np.asarray(dataset["word_vector"], np.float32)
+        self.word_vectors = (torch.as_tensor(vectors, device=self.device)
+                             if self.mesh is None
+                             else self.mesh.shard_vocab(vectors, self.device))
 
         # residency: the device table, or host streaming when asked for or
-        # when the table (rows x T x D in the storage dtype; int8 scales not
-        # counted) is over the budget
+        # when this rank's part of the table (rows padded to the shards x T
+        # x D in the storage dtype; int8 scales not counted) is over the
+        # budget, as hual_tpu counts it per chip
         self._feat_dtype = _FEATURE_DTYPES[config.model.feature_dtype]
         packed = feature_store.packed
-        table_gb = packed.size * self._feat_dtype.itemsize / 1e9
+        shards = 1 if self.mesh is None else self.mesh.size
+        self._table_shape = (packed.shape[0] + (-packed.shape[0]) % shards,
+                             *packed.shape[1:])
+        table_gb = (math.prod(self._table_shape) * self._feat_dtype.itemsize
+                    / 1e9 / shards)
         hs = tcfg.host_streaming
         self.host_streaming = (table_gb > tcfg.hbm_budget_gb if hs is None
                                else bool(hs))
@@ -130,8 +159,8 @@ class Trainer:
         if self.host_streaming:
             self.logger.info(
                 f"host-streaming mode: feature table would be {table_gb:.1f} "
-                f"GB (budget {tcfg.hbm_budget_gb} GB); batches are gathered "
-                "on host and prefetched")
+                f"GB a rank (budget {tcfg.hbm_budget_gb} GB); batches are "
+                "gathered on host and prefetched")
             if self._feat_dtype == torch.int8:
                 self.logger.info(
                     "host-streaming with model.feature_dtype='int8': batches "
@@ -145,12 +174,13 @@ class Trainer:
             if device_features is None:
                 device_features = self._put_feature_table(packed)
             table, scales = device_features
-            if (tuple(table.shape) != packed.shape
+            if (tuple(table.shape) != self._table_shape
+                    or isinstance(table, RowShard) != (self.mesh is not None)
                     or table.dtype != self._feat_dtype
                     or (scales is None) != (self._feat_dtype != torch.int8)):
                 raise ValueError(f"device_features {tuple(table.shape)} "
                                  f"{table.dtype} do not match the store's "
-                                 f"{packed.shape} {self._feat_dtype}")
+                                 f"{self._table_shape} {self._feat_dtype}")
             self._device_features = (table, scales)
             self._train_data = self._device_data(self.train_set)
             self._test_data = self._device_data(self.test_set)
@@ -168,7 +198,8 @@ class Trainer:
         # the resident loops on the card: captured CUDA graphs, built at
         # first use, kept across epochs and sweeps (None: the eager loops)
         self._graphs: Optional[graphs.Graphs] = None
-        if self.device.type == "cuda" and not self.host_streaming:
+        if (self.device.type == "cuda" and not self.host_streaming
+                and graphs.capturable(self.mesh)):
             self._graphs = graphs.Graphs(self.device)
         # eval/infer index matrices depend only on the split and the batch
         # size: built and put on the device once
@@ -211,16 +242,36 @@ class Trainer:
 
     def export_device_features(self) -> Optional[_DeviceTable]:
         """The device table, to reuse across rounds: (table, scales), with
-        scales None unless the table is int8; None under host streaming."""
+        scales None unless the table is int8 (each this rank's
+        ``RowShard`` under a mesh); None under host streaming."""
         return self._device_features
 
     def _put_feature_table(self, packed: np.ndarray) -> _DeviceTable:
         if self._feat_dtype == torch.int8:
             q, scales = quantize_features(packed)
-            return (torch.from_numpy(q).to(self.device),
-                    torch.from_numpy(scales).to(self.device))
-        table = torch.from_numpy(packed).to(self.device)
+            return self._put(q), self._put(scales)
+        table = self._put(packed)
+        if isinstance(table, RowShard):
+            return RowShard(table.local.to(self._feat_dtype), table.lo,
+                            table.total, table.group), None
         return table.to(self._feat_dtype), None
+
+    def _put(self, rows: np.ndarray):
+        """A table on the device: whole, or this rank's RowShard under a
+        mesh (``feature_sharding``)."""
+        if self.mesh is None:
+            return torch.from_numpy(rows).to(self.device)
+        return self.mesh.shard_rows(rows, self.device)
+
+    def _barrier(self) -> None:
+        """Under a mesh, wait until rank 0 has written what the others read."""
+        if self.mesh is not None:
+            self.mesh.barrier()
+
+    def _rows(self, sel: np.ndarray):
+        """(this rank's indices of a global batch ``sel``, their Rows)."""
+        rows = steps.batch_rows(self.mesh, len(sel))
+        return (sel if rows is None else sel[rows.lo:rows.lo + rows.n]), rows
 
     def _device_data(self, packed: PackedDataset) -> dict:
         cols = {"feat_rows": packed.feat_rows, "word_ids": packed.word_ids,
@@ -282,26 +333,29 @@ class Trainer:
 
     def _sweep_args(self, key: str, dataset: PackedDataset) -> tuple:
         """The loops (``self._graphs`` or ``runtime/steps.py``, whose sweeps
-        share their names) and a sweep's inputs over ``dataset``: the device
+        share their names), a sweep's inputs over ``dataset`` (the device
         split, its index matrix and valid rows for the graphs, the batches
-        for the eager loops."""
+        for the eager loops) and the ``Rows`` of its batches."""
         batch_size = min(self.config.eval_batch_size if key != "infer"
                          else self.config.infer_batch_size, len(dataset))
+        rows = steps.batch_rows(self.mesh, batch_size)
         if self._graphs is None:
-            return steps, (self._sweep_batches(key, dataset, batch_size),)
-        return self._graphs, self._resident_sweep(key, dataset, batch_size)
+            return steps, (self._sweep_batches(key, dataset, batch_size, rows),), rows
+        return self._graphs, self._resident_sweep(key, dataset, batch_size), rows
 
     def _sweep_batches(self, key: str, dataset: PackedDataset,
-                       batch_size: int) -> Iterator[tuple[dict, int]]:
+                       batch_size: int, rows) -> Iterator[tuple[dict, int]]:
         """A sweep's (device batch, n_valid) pairs over ``dataset`` in
         ``EvalLoader``'s padded batches: gathered from the device split, or
         streamed from the host in the same order (batch ``i`` is the same
-        batch, so it draws from the same MC streams)."""
+        batch, so it draws from the same MC streams); this rank's ``rows``
+        of each under a mesh."""
         if self.host_streaming:
             loader = EvalLoader(dataset, batch_size, pad_to_batch=True)
-            return self._stream(dataset, loader.index_iter())
+            return self._stream(dataset, ((self._rows(sel)[0], n)
+                                          for sel, n in loader.index_iter()))
         return steps.resident_batches(*self._resident_sweep(key, dataset,
-                                                            batch_size))
+                                                            batch_size), rows)
 
     def _require_weights(self) -> None:
         if self.state is None:
@@ -320,33 +374,47 @@ class Trainer:
         if ds is None:
             raise ValueError(f"{split} set is not available")
         with trace(f"eval_sweep_{split}"):
-            loops, inputs = self._sweep_args(split, ds)
+            loops, inputs, rows = self._sweep_args(split, ds)
             args = (self.model, *inputs, self.word_vectors)
             ious = (loops.fused_eval_sweep(
-                        *args, mxu_bf16=self.config.train.fused_mxu_bf16)
-                    if self._fused else loops.eval_sweep(*args))
+                        *args, mxu_bf16=self.config.train.fused_mxu_bf16,
+                        rows=rows)
+                    if self._fused else loops.eval_sweep(*args, rows=rows))
             return ious.cpu().numpy()
 
     def infer_trainset(self, save_path: Optional[str] = None,
                        seed: Optional[int] = None) -> dict[str, float]:
         """Full-train-set MC-dropout inference; writes the round pickle with
         the reference schema (NumPy float32 arrays and Python ints).  The
-        stochastic passes draw from ``train.seed`` (or ``seed``)."""
+        stochastic passes draw from ``train.seed`` (or ``seed``).  Under a
+        mesh every rank returns the metrics and rank 0 writes the pickle."""
         self._require_weights()
         cfg = self.config
         seed = cfg.train.seed if seed is None else seed
         if save_path is None:
             save_path = f"./results/{cfg.task}/{cfg.suffix}.pkl"
         with trace("infer_sweep"):
-            loops, inputs = self._sweep_args("infer", self.train_set)
+            loops, inputs, rows = self._sweep_args("infer", self.train_set)
             args = (self.model, *inputs, self.word_vectors,
                     cfg.train.mc_droprate, seed, self.mc_model)
             outs = (loops.fused_infer_sweep(*args,
-                                            mxu_bf16=cfg.train.fused_mxu_bf16)
+                                            mxu_bf16=cfg.train.fused_mxu_bf16,
+                                            rows=rows)
                     if self._fused
-                    else loops.infer_sweep(*args, fold_mc=cfg.train.fold_mc))
+                    else loops.infer_sweep(*args, fold_mc=cfg.train.fold_mc,
+                                           rows=rows))
             host = {k: v.cpu().numpy() for k, v in outs.items()}
 
+        metrics = rank1_metrics(host["ious"])
+        if self.is_writer:
+            self._write_pickle(host, save_path)
+            self.logger.info(
+                "predict train set:\t{r1i3:.2f}\t{r1i5:.2f}\t{r1i7:.2f}\t"
+                "{miou:.2f}\t".format(**metrics))
+        self._barrier()
+        return metrics
+
+    def _write_pickle(self, host: dict, save_path: str) -> None:
         save_list = []
         for i, rec in enumerate(self.train_set.records):
             save_list.append({
@@ -363,11 +431,6 @@ class Trainer:
                 "m_score": host["match_scores"][i],
             })
         save_pickle(save_list, save_path)
-        metrics = rank1_metrics(host["ious"])
-        self.logger.info(
-            "predict train set:\t{r1i3:.2f}\t{r1i5:.2f}\t{r1i7:.2f}\t{miou:.2f}\t"
-            .format(**metrics))
-        return metrics
 
     # ------------------------------------------------------------------
     def train(self, epoch_callback: Optional[Callable[[int, dict], None]] = None
@@ -384,7 +447,7 @@ class Trainer:
         if self.state is None:
             self.init_state()
         state = self.state
-        if self.metrics is None:
+        if self.metrics is None and self.is_writer:
             self.metrics = MetricsWriter(os.path.join(
                 "logs", cfg.task, f"metrics_{cfg.suffix or 'run'}.jsonl"))
         loader = TrainLoader(self.train_set, tcfg.batch_size, seed=tcfg.seed)
@@ -394,7 +457,8 @@ class Trainer:
                 "epoch": -1, "test_metrics": {}, "train_metrics": {},
                 "improved": False}
         model_dir = os.path.abspath(cfg.model_dir())
-        os.makedirs(model_dir, exist_ok=True)
+        if self.is_writer:
+            os.makedirs(model_dir, exist_ok=True)
         timer = StepTimer(warmup_steps=1)
         if state.epoch:
             self.logger.info(f"resuming at epoch {state.epoch} "
@@ -406,12 +470,12 @@ class Trainer:
             timer.start()
             with trace(f"train_epoch_{epoch}"):
                 if self.host_streaming:
-                    # the resident path's batch order and step streams
-                    sels = ((sel, len(sel)) for sel in loader.index_iter(epoch))
+                    # the resident path's batch order and step streams;
+                    # the stream carries each batch's Rows through
+                    sels = (self._rows(sel) for sel in loader.index_iter(epoch))
                     losses, ious = steps.train_batches(
                         self.model, state.opt,
-                        (b for b, _ in self._stream(self.train_set, sels,
-                                                    with_labels=True)),
+                        self._stream(self.train_set, sels, with_labels=True),
                         self.word_vectors, cur_lr, tcfg.seed + 17, state.step,
                         drop_rate=tcfg.droprate,
                         match_lambda=cfg.loss.match_lambda)
@@ -425,7 +489,7 @@ class Trainer:
                         self.model, state.opt, self._train_data, order,
                         loader.batch_size, self.word_vectors, cur_lr,
                         tcfg.seed + 17, state.step, drop_rate=tcfg.droprate,
-                        match_lambda=cfg.loss.match_lambda)
+                        match_lambda=cfg.loss.match_lambda, mesh=self.mesh)
                 # the epoch's one fetch, and its only synchronisation but
                 # for the streamed batches' synchronous uploads
                 fetched = torch.cat([losses, ious]).cpu().numpy()
@@ -447,10 +511,11 @@ class Trainer:
             test_line = ("TEST:\t{r1i3:.2f}\t{r1i5:.2f}\t{r1i7:.2f}\t{miou:.2f}\t"
                          .format(**test_m))
             self.logger.info(test_line)
-            self.metrics.write("epoch", epoch=epoch, lr=cur_lr, train=train_m,
-                               test=test_m, pairs_per_sec=timer.pairs_per_sec,
-                               step_ms=timer.mean_step_ms, train_wall_s=train_s,
-                               eval_wall_s=eval_s)
+            if self.metrics is not None:
+                self.metrics.write("epoch", epoch=epoch, lr=cur_lr, train=train_m,
+                                   test=test_m, pairs_per_sec=timer.pairs_per_sec,
+                                   step_ms=timer.mean_step_ms,
+                                   train_wall_s=train_s, eval_wall_s=eval_s)
             self.last_epoch_wall = {"train_s": train_s, "eval_s": eval_s,
                                     "steps": int(losses.numel())}
 
@@ -461,8 +526,9 @@ class Trainer:
                             test_metrics=test_m, train_metrics=train_m,
                             improved=True)
                 state.best_r1i7 = float(test_m["r1i7"])
-                _save_npz(os.path.join(model_dir, "best.npz"),
-                          to_jax_params(self.model))
+                if self.is_writer:
+                    _save_npz(os.path.join(model_dir, "best.npz"),
+                              to_jax_params(self.model))
             state.epoch = epoch + 1
             # the resume point, after the best checkpoint, so a resume's
             # threshold matches the checkpoint on disk
@@ -474,15 +540,23 @@ class Trainer:
         self.logger.info("Highest R1i7 epoch:\n%s\n%s",
                          best["train_line"], best["test_line"])
         best["pairs_per_sec"] = timer.pairs_per_sec
-        self.metrics.write("best", **{k: v for k, v in best.items()
-                                      if not k.endswith("_line")})
+        if self.metrics is not None:
+            self.metrics.write("best", **{k: v for k, v in best.items()
+                                          if not k.endswith("_line")})
+        self._barrier()
         return best
 
     # ------------------------------------------------------------------
     def save_state(self, path: str) -> None:
         """Params, optimizer moments, step, best R@1@0.7 and epochs done,
-        through ``torch.save`` (written to a temporary file, then renamed)."""
+        through ``torch.save`` (written to a temporary file, then renamed);
+        by rank 0 under a mesh, the others waiting at a barrier."""
         self._require_weights()
+        if self.is_writer:
+            self._write_state(path)
+        self._barrier()
+
+    def _write_state(self, path: str) -> None:
         state = self.state
         blob = {"params": {k: v.detach().cpu().clone()
                            for k, v in self.model.state_dict().items()},

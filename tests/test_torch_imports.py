@@ -53,6 +53,7 @@ def test_serve_imports_with_jax_blocked():
         "import hual_tpu_torch.runtime.trainer\n"
         "import hual_tpu_torch.ops.kernels.fused_forward\n"
         "import hual_tpu_torch.orchestrate, hual_tpu_torch.cli\n"
+        "import hual_tpu_torch.parallel\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'hual_tpu') and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"
