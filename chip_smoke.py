@@ -152,7 +152,21 @@ line; any failure exits non-zero before the last line:
    sweep's logits (spans equal or a printed near-tie), (B)'s band on the
    bf16 sweep, the MC passes within K2's bound against the largest logit;
    K1 and K2 launched on both ranks, only rank 0 wrote the pickle;
-14. kernels: one entry per ported kernel (K2's bf16 path apart) with its
+14. migrate_charades, TF1 checkpoint migration (``utils/tf1_port.py``)
+   with no TensorFlow: a seeded random model's params at Charades width
+   written as a reference-named Saver checkpoint (V2 bundle, with the Adam
+   slots, ``global_step`` and the GloVe table; ``tests/torch_tf1_bundle.py``)
+   read back by the TF-free reader (and its crc check timed alone, in
+   turns) and ported to ``best.npz`` (seconds of each); ``Trainer.restore``
+   of it, the fused test sweep (K2 and K1), then ``export_bundle`` ->
+   ``Predictor.from_bundle`` serving 96 raw test requests (K1): params,
+   the sweep's logits, spans and match scores, the served spans and
+   logits bit-equal to those of the same params loaded directly;
+15. tools_charades: each of the five tools (``tools/torch_{bench_span_decode,
+   bench_fused,bench_serve,validate_pipeline,full_loop_demo}.py``) in its own
+   process at a cut (``tools_phase``): exit 0, its JSON's keys, K1 launched
+   in each and K2 in the three with fused sweeps; their numbers;
+16. kernels: one entry per ported kernel (K2's bf16 path apart) with its
    launches on the main paths and its check against the plain version; the
    seconds per phase.
 
@@ -202,6 +216,8 @@ from hual_tpu_torch.runtime.debug import enable_deterministic
 from hual_tpu_torch.runtime.trainer import Trainer
 from hual_tpu_torch.serve import Predictor, export_bundle, export_model_bundle
 from hual_tpu_torch.utils.metrics import time_to_index_al
+from hual_tpu_torch.utils.tf1_port import (crc32c, load_tf1_checkpoint,
+                                           port_checkpoint, word_vectors_path)
 from hual_tpu_torch.weights import _leaves, load_jax_params, to_jax_params
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1752,12 +1768,9 @@ def fold_mc_check(workdir: str, config, store, dataset, table, flat) -> dict:
             "folded_logits_differ_share": live, "k1_main_path": main_k1}
 
 
-def serve_from_trainer(workdir: str, tr: Trainer) -> dict:
-    """(e) ``Predictor.from_trainer`` on the streamed trainer and
-    ``export_bundle(trainer)`` -> ``Predictor.from_bundle``, on the first 96
-    test samples as raw requests: spans and logits equal to each other,
-    spans equal to the trainer's eval path on the same samples."""
-    n = 96
+def test_requests(tr: Trainer, n: int) -> list:
+    """The first ``n`` test samples as raw (features, duration, query)
+    requests, their features the store's rows."""
     with open(tr.config.paths.test_path) as f:
         records = json.load(f)[:n]
     requests = []
@@ -1766,6 +1779,16 @@ def serve_from_trainer(workdir: str, tr: Trainer) -> dict:
         row = tr.features.vid_index[vid]
         requests.append((tr.features.packed[row, :tr.features.lengths[row]],
                          duration, sentence))
+    return requests
+
+
+def serve_from_trainer(workdir: str, tr: Trainer) -> dict:
+    """(e) ``Predictor.from_trainer`` on the streamed trainer and
+    ``export_bundle(trainer)`` -> ``Predictor.from_bundle``, on the first 96
+    test samples as raw requests: spans and logits equal to each other,
+    spans equal to the trainer's eval path on the same samples."""
+    n = 96
+    requests = test_requests(tr, n)
     reset_launches()                         # main path starts
     pred = Predictor.from_trainer(tr, batch_size=n)
     got = pred.predict_batch(requests)
@@ -3061,6 +3084,184 @@ def parallel_phase(workdir: str, config, store, dataset) -> dict:
     return launches
 
 
+# -- phase 14 -------------------------------------------------------------------
+MIGRATE_STEP = 12345
+
+
+def migrate_phase(workdir: str, config, store, dataset, table) -> dict:
+    """Phase 14; returns the K1/K2 launches of its main path: the restored
+    Trainer's fused test sweep and the served chunk of 96 requests."""
+    t_phase = time.perf_counter()
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_tf1_bundle as bundle_writer
+
+    root = os.path.join(workdir, "migrate")
+    cfg = train_config(config, os.path.join(root, "ckpt_port"), epochs=1)
+    quiet = logging.getLogger("chip_smoke.migrate")
+    direct = Trainer(cfg, dataset, store, logger=quiet, device_features=table,
+                     device=DEVICE)
+    direct.init_state(SEED + 10)
+    flat = to_jax_params(direct.model)
+    direct.load_params(flat)                 # the same params, loaded directly
+    values = bundle_writer.saver_values(flat, dataset["word_vector"], MIGRATE_STEP,
+                                        np.random.default_rng(SEED + 10))
+    ckpt_dir = os.path.join(root, "ckpt")
+    t0 = time.perf_counter()
+    prefix = bundle_writer.write_bundle(
+        os.path.join(ckpt_dir, f"best_SeqPAN.ckpt-{MIGRATE_STEP}"), values)
+    bundle_writer.write_pointer(ckpt_dir, prefix)
+    write_s = time.perf_counter() - t0
+    bundle_bytes = sum(os.path.getsize(os.path.join(ckpt_dir, f))
+                       for f in os.listdir(ckpt_dir))
+
+    # the reader, and its crc check alone (crc32c over every tensor's bytes),
+    # in turns
+    reader_s: dict[str, list] = {"reader": [], "crc_check": []}
+    for part in ("reader", "crc_check", "crc_check", "reader"):
+        t0 = time.perf_counter()
+        if part == "reader":
+            read = load_tf1_checkpoint(ckpt_dir)
+        else:
+            for v in read.values():
+                crc32c(np.ascontiguousarray(v).data)
+        reader_s[part].append(time.perf_counter() - t0)
+    check(read.keys() == values.keys()
+          and all(np.asarray(read[k]).dtype == v.dtype and np.shape(read[k]) == v.shape
+                  and np.asarray(read[k]).tobytes() == v.tobytes()
+                  for k, v in values.items()),
+          "migrate: the reader's values differ from the bundle's")
+    out = os.path.join(root, "ported", "best.npz")
+    t0 = time.perf_counter()
+    ported, word_vectors = port_checkpoint(ckpt_dir, out)
+    port_s = time.perf_counter() - t0
+    check(ported.keys() == flat.keys()
+          and all(ported[k].tobytes() == v.tobytes() for k, v in flat.items()),
+          "migrate: the ported params differ from the written ones")
+    check(np.array_equal(word_vectors, dataset["word_vector"])
+          and np.array_equal(np.load(word_vectors_path(out)), dataset["word_vector"]),
+          "migrate: the ported word vectors differ")
+
+    restored = Trainer(copy.deepcopy(cfg), dataset, store, logger=quiet,
+                       device_features=table, device=DEVICE)
+    restored.restore(out)
+    check(all(v.tobytes() == flat[k].tobytes()
+              for k, v in to_jax_params(restored.model).items()),
+          "migrate: Trainer.restore's params differ from the written ones")
+    requests = test_requests(restored, 96)
+    # the reference: the directly loaded params, the same calls (not counted)
+    want_test = direct.test()
+    want_out = test_split_outputs(direct, mxu_bf16=False)
+    want_pred = Predictor.from_bundle(export_bundle(direct, os.path.join(root, "direct")),
+                                      batch_size=96, device=DEVICE)
+    want_served = want_pred.predict_batch(requests)
+
+    reset_launches()                         # main path starts
+    t0 = time.perf_counter()
+    test_m = restored.test()
+    test_s = time.perf_counter() - t0
+    pred = Predictor.from_bundle(export_bundle(restored, os.path.join(root, "bundle")),
+                                 batch_size=96, device=DEVICE)
+    served = pred.predict_batch(requests)
+    launches = launch_counts()               # main path ends
+    n_test = math.ceil(len(restored.test_set) / cfg.eval_batch_size)
+    check(launches == {"span_decode": n_test + 1, "fused_forward": n_test,
+                       "fused_forward_bf16": 0},
+          f"migrate: launches {launches} ({n_test} test batches, 1 served chunk)")
+    got_out = test_split_outputs(restored, mxu_bf16=False)
+    check_results(served, len(requests), "migrate")
+    check(test_m == want_test
+          and all(np.array_equal(got_out[k], want_out[k]) for k in want_out),
+          "migrate: the restored model's test sweep is not bit-equal to the "
+          "directly loaded params'")
+    host = pred.encode_batch(requests)
+    check(served == want_served
+          and all(torch.equal(a, b) for a, b in zip(forward_logits(pred, host),
+                                                    forward_logits(want_pred, host))),
+          "migrate: the served spans or logits differ from the directly loaded params'")
+    direct.close()
+    restored.close()
+    emit({"migrate_charades": {
+        "card": CARD[0], "variables": len(values),
+        "model_params": int(sum(v.size for v in flat.values())),
+        "bundle_bytes": bundle_bytes, "write_seconds": write_s,
+        "reader_seconds": reader_s["reader"],
+        "crc_check_seconds": reader_s["crc_check"],
+        "port_checkpoint_seconds": port_s, "test_seconds": test_s,
+        "test": test_m, "served_requests": len(served), "launches": launches,
+        "bit_equal": {"params": True, "test_sweep_logits": True,
+                      "served_logits": True, "spans": True},
+        "seconds": time.perf_counter() - t_phase,
+        "timing": "host clock; the reader (its crc check included) and the crc "
+                  "check alone over the same tensors, in turns"}})
+    return launches
+
+
+# -- phase 15 -------------------------------------------------------------------
+# each tool at its cut: (name, arguments, K2 launched, keys its JSON holds)
+TOOLS = (
+    ("bench_span_decode", ["--iters", "20"], False,
+     ("decode_plain_b96_t64_us", "decode_kernel_b96_t64_us", "decode_plain_b96_t100_us",
+      "decode_kernel_b96_t100_us", "infer_step_plain_b96_t64_ms",
+      "infer_step_kernel_b96_t64_ms")),
+    ("bench_fused", ["--iters", "3", "--steps", "7"], True, ("rows", "graphed")),
+    ("bench_serve", ["--single", "16", "--chunks", "2"], False,
+     ("single_latency_ms", "batched")),
+    ("validate_pipeline", ["--n-train", "256", "--n-test", "64", "--epochs", "1"], True,
+     ("stages",)),
+    ("full_loop_demo", ["--n-train", "256", "--n-test", "64", "--epochs", "1",
+                        "--rounds", "1"], True, ("times", "rounds", "round_stages")),
+)
+
+
+def tools_phase(workdir: str) -> dict:
+    """Phase 15: each of the five tools once, in its own process, at its
+    cut: ``torch_bench_span_decode`` 20 calls a decoder and 4 infer steps
+    (its shapes are not cut); ``torch_bench_fused`` 3 sweeps of 7 batches of
+    96 a row (21 batches, 10 sweeps); ``torch_bench_serve`` 16 single
+    requests and 2 chunks a batch size (64 and 10); ``torch_validate_pipeline``
+    256 train / 64 test queries, 1 epoch (2,000 / 500, 3 epochs);
+    ``torch_full_loop_demo`` 256 / 64 queries, 1 epoch, 1 round (12,403 /
+    3,720, 50 epochs, 3 rounds).  Each must exit 0, write its JSON with the
+    expected keys and launch K1; the three that run fused sweeps must launch
+    K2.  Returns the launches of all five."""
+    t_phase = time.perf_counter()
+    root = os.path.join(workdir, "tools")
+    os.makedirs(root)
+    total = {"span_decode": 0, "fused_forward": 0, "fused_forward_bf16": 0}
+    runs = {}
+    for name, args, with_k2, keys in TOOLS:
+        out = os.path.join(root, f"torch_{name}.json")
+        if name in ("bench_serve", "validate_pipeline", "full_loop_demo"):
+            args = args + ["--root", os.path.join(root, name)]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.join(ROOT, "tools", f"torch_{name}.py"),
+                               *args, "--out", out], cwd=root, capture_output=True,
+                              text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        check(proc.returncode == 0, f"tools: torch_{name} exited {proc.returncode}:\n"
+                                    f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        with open(out) as f:
+            res = json.load(f)
+        check(all(k in res for k in keys), f"tools: torch_{name}'s JSON lacks "
+                                           f"{[k for k in keys if k not in res]}")
+        n = res["launches"]
+        printed = [json.loads(line) for line in proc.stdout.splitlines()
+                   if line.startswith('{"launches"')]
+        check(printed == [{"launches": n}], f"tools: torch_{name} printed {printed}")
+        check(n["span_decode"] > 0 and (n["fused_forward"] > 0) == with_k2
+              and n["fused_forward_bf16"] == 0,
+              f"tools: torch_{name} launched {n}")
+        for k in total:
+            total[k] += n[k]
+        if name == "full_loop_demo":
+            res = {k: res[k] for k in ("times", "round_stages", "re0_launches",
+                                       "launches", "card")}
+        runs[name] = {"arguments": args, "seconds": seconds, "result": res}
+    emit({"tools_charades": {"card": CARD[0], "runs": runs, "launches": total,
+                             "seconds": time.perf_counter() - t_phase}})
+    return total
+
+
 def main(argv: list[str]) -> None:
     if argv[:1] == ["--resume-worker"]:
         resume_worker(argv[1])
@@ -3115,6 +3316,9 @@ def main(argv: list[str]) -> None:
                                dataset, table)
         parallel_launches = timed("parallel_charades", parallel_phase, workdir, config,
                                   store, dataset)
+        migrate_launches = timed("migrate_charades", migrate_phase, workdir, config,
+                                 store, dataset, table)
+        tool_launches = timed("tools_charades", tools_phase, workdir)
     emit({"phase_seconds": seconds, "card": CARD[0]})
     emit({"kernels": [{
         "name": "span_decode", "route": "cuda",
@@ -3125,7 +3329,8 @@ def main(argv: list[str]) -> None:
                      + train_launches["mc_sweep_fused"]["span_decode"]
                      + bf16_options["span_decode"] + loop_launches["span_decode"]
                      + sum(streaming_launches.values()) + graph_launches["span_decode"]
-                     + parallel_launches["span_decode"]),
+                     + parallel_launches["span_decode"] + migrate_launches["span_decode"]
+                     + tool_launches["span_decode"]),
         "launches_by_path": {"serve": serve_launches,
                              "sweep_fused": sweep_launches["span_decode"],
                              "train": train_launches["train"]["span_decode"],
@@ -3135,7 +3340,9 @@ def main(argv: list[str]) -> None:
                              "loop": loop_launches["span_decode"],
                              **streaming_launches,
                              "graphs": graph_launches["span_decode"],
-                             "parallel": parallel_launches["span_decode"]},
+                             "parallel": parallel_launches["span_decode"],
+                             "migrate": migrate_launches["span_decode"],
+                             "tools": tool_launches["span_decode"]},
         "max_abs_err": k1_main["max_abs_err"],
         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
@@ -3147,7 +3354,8 @@ def main(argv: list[str]) -> None:
                      + train_launches["train"]["fused_forward"]
                      + train_launches["mc_sweep_fused"]["fused_forward"]
                      + bf16_options["fused_forward"] + loop_launches["fused_forward"]
-                     + graph_launches["fused_forward"] + parallel_launches["fused_forward"]),
+                     + graph_launches["fused_forward"] + parallel_launches["fused_forward"]
+                     + migrate_launches["fused_forward"] + tool_launches["fused_forward"]),
         "launches_by_path": {"sweep_fused": sweep_launches["fused_forward"],
                              "train": train_launches["train"]["fused_forward"],
                              "mc_sweep_fused":
@@ -3155,7 +3363,9 @@ def main(argv: list[str]) -> None:
                              "bf16_options": bf16_options["fused_forward"],
                              "loop": loop_launches["fused_forward"],
                              "graphs": graph_launches["fused_forward"],
-                             "parallel": parallel_launches["fused_forward"]},
+                             "parallel": parallel_launches["fused_forward"],
+                             "migrate": migrate_launches["fused_forward"],
+                             "tools": tool_launches["fused_forward"]},
         "max_abs_err": k2_main["max_abs_err"],
         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],

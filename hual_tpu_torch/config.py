@@ -44,6 +44,8 @@ from typing import Any, Optional
 
 import torch
 
+from hual_tpu_torch.utils.io import load_yaml
+
 _DTYPE_ALIASES = {"float32": "float32", "f32": "float32", "": "float32",
                   "bfloat16": "bfloat16", "bf16": "bfloat16"}
 _STORAGE_DTYPE_ALIASES = dict(_DTYPE_ALIASES, int8="int8", i8="int8")
@@ -202,10 +204,7 @@ class Config:
 
     @classmethod
     def load(cls, path: str) -> "Config":
-        import yaml  # the machine with the card may not have pyyaml
-
-        with open(path, encoding="utf8") as f:
-            return cls.from_dict(yaml.safe_load(f))
+        return cls.from_dict(load_yaml(path))
 
     def to_dict(self) -> dict[str, Any]:
         return dataclasses.asdict(self)

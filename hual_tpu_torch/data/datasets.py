@@ -29,7 +29,12 @@ class Processor:
     def __init__(self):
         self.idx_counter = 0
 
-    def process_data(self, data) -> list[dict]:
+    def reset_idx_counter(self):
+        self.idx_counter = 0
+
+    def process_data(self, data, scope: str | None = None) -> list[dict]:
+        """``scope`` ("train", "test", ...) is the reference's argument,
+        accepted and unused there too."""
         results = []
         for record in data:
             vid, duration, gt_label, sentence = record[:4]
@@ -46,12 +51,13 @@ class Processor:
         return results
 
     def convert(self, data_dir: str):
-        self.idx_counter = 0
+        self.reset_idx_counter()
         if not os.path.exists(data_dir):
             raise ValueError(f"data dir {data_dir} does not exist")
         train_data = load_json(os.path.join(data_dir, "train.json"))
         test_data = load_json(os.path.join(data_dir, "test.json"))
-        return self.process_data(train_data), None, self.process_data(test_data)
+        return (self.process_data(train_data, scope="train"), None,
+                self.process_data(test_data, scope="test"))
 
 
 def dataset_gen(data, vfeat_lens, word_dict, char_dict,
@@ -60,25 +66,53 @@ def dataset_gen(data, vfeat_lens, word_dict, char_dict,
     ``max_pos_len``: the reference passes max_vlen here, not max_tlen, and
     the quirk is kept on purpose."""
     dataset = []
-    unk_w, unk_c = word_dict[UNK], char_dict[UNK]
     for record in data:
         vid = record["vid"]
         if vid not in vfeat_lens:
             continue
         s_ind, e_ind = time_to_index(record["s_time"], record["e_time"],
                                      vfeat_lens[vid], record["duration"])
-        word_ids, char_ids = [], []
-        for word in record["words"][0:max_pos_len]:
-            word_ids.append(word_dict.get(word, unk_w))
-            char_ids.append([char_dict.get(c, unk_c) for c in word])
-        dataset.append({
-            "sample_id": record["sample_id"], "vid": vid,
+        dataset.append(_sample(record, vfeat_lens[vid], s_ind, e_ind,
+                               word_dict, char_dict, max_pos_len))
+    return dataset
+
+
+def dataset_gen_active(data, vfeat_lens, word_dict, char_dict,
+                       max_pos_len: int, scope: str | None = None) -> list[dict]:
+    """:func:`dataset_gen` with the spans taken from per-frame active
+    weights instead of the timestamps (reference dataset_gen_active,
+    utils/data_gen.py:119-152; on no path of the pipeline).  Records carry
+    an ``active_weight`` list; the first and last frames of weight >= 0.5
+    bound the span.  Raises ValueError for a record with no such frame."""
+    dataset = []
+    for record in data:
+        vid = record["vid"]
+        if vid not in vfeat_lens:
+            continue
+        flen = vfeat_lens[vid]
+        w = np.asarray(record["active_weight"])
+        hits = np.where(w >= 0.5)[0]
+        if len(hits) < 1:
+            raise ValueError(f"no active frames for {vid}")
+        s_ind = round(hits[0] / len(w) * (flen - 1))
+        e_ind = round(hits[-1] / len(w) * (flen - 1))
+        dataset.append(_sample(record, flen, s_ind, e_ind, word_dict,
+                               char_dict, max_pos_len))
+    return dataset
+
+
+def _sample(record: dict, v_len: int, s_ind, e_ind, word_dict, char_dict,
+            max_pos_len: int) -> dict:
+    unk_w, unk_c = word_dict[UNK], char_dict[UNK]
+    word_ids, char_ids = [], []
+    for word in record["words"][0:max_pos_len]:
+        word_ids.append(word_dict.get(word, unk_w))
+        char_ids.append([char_dict.get(c, unk_c) for c in word])
+    return {"sample_id": record["sample_id"], "vid": record["vid"],
             "s_time": record["s_time"], "e_time": record["e_time"],
             "duration": record["duration"], "words": record["words"],
             "s_ind": int(s_ind), "e_ind": int(e_ind),
-            "v_len": vfeat_lens[vid], "w_ids": word_ids, "c_ids": char_ids,
-        })
-    return dataset
+            "v_len": v_len, "w_ids": word_ids, "c_ids": char_ids}
 
 
 def _records_fingerprint(data_dir: str) -> str:

@@ -14,6 +14,8 @@ Each quirk of the reference is kept on purpose:
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 
 
@@ -60,3 +62,38 @@ def make_span_labels(s_inds: np.ndarray, e_inds: np.ndarray, vlens: np.ndarray,
     match_labels = np.where(m3, 3, np.where(m2, 2, np.where(m1, 1, 0))).astype(np.int32)
     inner_labels = m2.astype(np.int32)
     return s_labels, e_labels, match_labels, inner_labels
+
+
+# Gaussian soft labels (reference utils/data_utils.py:176-206): dead in the
+# reference train path (computed, then discarded), kept as public API.
+
+
+def get_gaussian_weight(center: float, vlen: int, L: int, alpha: float) -> np.ndarray:
+    """A Gaussian over ``L`` positions around ``center``, width ``vlen / L *
+    alpha``, scaled to a maximum of 1 and zero from ``vlen`` on."""
+    x = np.linspace(-1, 1, num=L, dtype=np.float32)
+    sig = vlen / L * alpha
+    u = (center / (L - 1)) * 2 - 1
+    weight = np.exp(-((x - u) ** 2) / (2 * sig ** 2)) / (math.sqrt(2 * math.pi) * sig)
+    weight /= np.max(weight)
+    weight[vlen:] = 0.0
+    return weight
+
+
+def gene_soft_label(sidx: int, eidx: int, vlen: int, L: int, alpha: float):
+    """Soft start, end and (O, S, I, E) match labels of a span: (L,), (L,)
+    and (L, 4)."""
+    Ssoft = get_gaussian_weight(sidx, vlen, L, alpha)
+    Esoft = get_gaussian_weight(eidx, vlen, L, alpha)
+    IOsoft = 1 - Ssoft - Esoft
+    mask_I = np.zeros(L)
+    mask_I[sidx:eidx + 1] = 1
+    Isoft = IOsoft * mask_I
+    mask_O = np.zeros(L)
+    mask_O[:sidx] = 1
+    mask_O[eidx + 1:vlen] = 1
+    Osoft = IOsoft * mask_O
+    Ssoft = Ssoft / np.sum(Ssoft)
+    Esoft = Esoft / np.sum(Esoft)
+    Msoft = np.stack([Osoft, Ssoft, Isoft, Esoft]).T
+    return Ssoft, Esoft, Msoft

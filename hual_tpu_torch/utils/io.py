@@ -8,6 +8,13 @@ import pickle
 from typing import Any
 
 
+def load_yaml(path: str) -> Any:
+    import yaml  # the machine with the card may not have pyyaml
+
+    with open(path, encoding="utf8") as f:
+        return yaml.safe_load(f)
+
+
 def load_json(path: str) -> Any:
     with open(path, encoding="utf-8") as f:
         return json.load(f)
@@ -17,6 +24,17 @@ def save_json(data: Any, path: str) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w", encoding="utf-8") as f:
         json.dump(data, f)
+
+
+def load_lines(path: str) -> list[str]:
+    with open(path, encoding="utf-8") as f:
+        return [line.rstrip("\n") for line in f]
+
+
+def save_lines(lines: list[str], path: str) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines))
 
 
 def load_pickle(path: str) -> Any:

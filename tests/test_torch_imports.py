@@ -1,5 +1,7 @@
-"""Import boundary: the port and chip_smoke.py never import JAX, flax or the
-JAX package, so they run on a machine that has none of them."""
+"""Import boundary: the port, its tools (``tools/torch_*.py``), the
+checkpoint writer the card runs (``tests/torch_tf1_bundle.py``) and
+chip_smoke.py never import JAX, flax, the JAX package or TensorFlow, so
+they run on a machine that has none of them."""
 
 from __future__ import annotations
 
@@ -12,11 +14,13 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "hual_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "hual_tpu", "tensorflow")
 
 
 def _port_files() -> list[Path]:
-    return sorted((ROOT / "hual_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "hual_tpu_torch").rglob("*.py"))
+            + sorted((ROOT / "tools").glob("torch_*.py"))
+            + [ROOT / "tests" / "torch_tf1_bundle.py", ROOT / "chip_smoke.py"])
 
 
 def _forbidden(module: str) -> bool:
@@ -41,21 +45,24 @@ def test_no_forbidden_import(path):
 
 def test_forbidden_prefix_rule():
     assert _forbidden("hual_tpu.serve") and _forbidden("jax.numpy")
+    assert _forbidden("tensorflow.compat.v1")
     assert not _forbidden("hual_tpu_torch.serve")
 
 
 def test_serve_imports_with_jax_blocked():
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'hual_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'hual_tpu', 'tensorflow'):\n"
         "    sys.modules[name] = None\n"
         "import hual_tpu_torch.serve, chip_smoke\n"
+        "import hual_tpu_torch.utils.tf1_port\n"
         "import hual_tpu_torch.runtime.trainer\n"
         "import hual_tpu_torch.ops.kernels.fused_forward\n"
         "import hual_tpu_torch.orchestrate, hual_tpu_torch.cli\n"
         "import hual_tpu_torch.parallel\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'hual_tpu') and sys.modules[m] is not None]\n"
+        "('jax', 'jaxlib', 'flax', 'hual_tpu', 'tensorflow') "
+        "and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
