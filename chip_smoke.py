@@ -9,9 +9,11 @@ line; any failure exits non-zero before the last line:
    the TF32 flags after the port pins full fp32;
 2. build: every kernel of ``hual_tpu_torch/csrc`` compiled for sm_90a, one
    nvcc per source, all started together; ptxas's registers and spills per
-   kernel (any spill fails), and the counts of DMMA (f64 tensor-core) and
-   HMMA (bf16 tensor-core, K2's ``mxu_bf16`` path) instructions in K2's
-   SASS by ``cuobjdump -sass`` (0 of either fails);
+   kernel (any spill fails), and the counts of DMMA (f64 tensor-core),
+   HGMMA (wgmma: K2's ``mxu_bf16`` dense products) and HMMA (mma.sync bf16:
+   its attention and its products of up to 48 rows) instructions in K2's
+   SASS by ``cuobjdump -sass`` (0 of any fails); the registers, spills and
+   shared memory at T=64 and T=100 of K2's bf16 instantiation;
 3. span_decode: the kernel against its plain PyTorch version on the card,
    at the main path's shapes and larger (up to T=128), with crafted rows
    (all-equal probabilities, ties, a suffix maximum in a later 32-position
@@ -91,7 +93,8 @@ line; any failure exits non-zero before the last line:
    max|f64| on logits and <= max(0.05, 1.5 x the plain bf16 version's own
    distance) on match scores, (S) rms(x - f64) /
    rms(plain bf16 - f64) in [0.5, 2], (R) rms(x - f64) > 100 * rms(K2 f32 -
-   f64); times beside K2 f32's and the bf16 FLOP bound; (b) the test sweep
+   f64); times by CUDA events behind a device sleep and in the kernel
+   (torch.profiler) beside K2 f32's and the bf16 FLOP bound; (b) the test sweep
    and ``infer_trainset()`` with ``fused_mxu_bf16``: bf16 K2 launches equal
    the batches, R@1/mIoU and equal spans beside the f32 sweep's; (c) one
    epoch of ``Trainer.train()`` at ``compute_dtype: bfloat16`` on the train
@@ -124,7 +127,14 @@ line; any failure exits non-zero before the last line:
    ``infer_trainset()`` at mc 0 and 0.5 (sequential, ``fold_mc``,
    ``mc_dtype: bfloat16``) on (a)'s weights: IoUs and pickles bit-equal;
    (c) a fused test sweep captured before the epoch and replayed after it
-   equals the eager one (the pack is refreshed in place); then, outside
+   equals the eager one (the pack is refreshed in place); for the fused
+   and ``fused_mxu_bf16`` sweeps, the test split's clean pass captured on
+   (a)'s weights and replayed on them scaled by 1.01: both K2 buffers (f32
+   and the bf16 companion) repacked at their addresses, the captured graph
+   replayed, bit-equal to the eager pass on the new weights; (d) a
+   ``fused_mxu_bf16`` test sweep captured and replayed under
+   ``HUAL_PROFILE_DIR`` (``runtime/observability.trace``): IoUs bit-equal
+   to an unprofiled one and the trace file written; then, outside
    deterministic mode on the Train cell: one graphed epoch, ms a step
    graphed and eager in turns, 20 graphed steps profiled (the host's launch
    calls and the device's idle share), each capture's seconds and pool
@@ -453,11 +463,26 @@ def build_kernels() -> None:
             check(r.get("spill_bytes", 0) == 0, f"{n}: ptxas spills in {k}: {r}")
     dmma = sass_count("fused_forward", "DMMA")
     check(dmma > 0, "K2's SASS holds no DMMA instruction")
+    hgmma = sass_count("fused_forward", "HGMMA")
+    check(hgmma > 0, "K2's SASS holds no HGMMA instruction (its mxu_bf16 path's "
+                     "wgmma products)")
     hmma = sass_count("fused_forward", "HMMA")
-    check(hmma > 0, "K2's SASS holds no HMMA instruction (its mxu_bf16 path)")
+    check(hmma > 0, "K2's SASS holds no HMMA instruction (its mxu_bf16 path's "
+                    "mma.sync products: attention, products of up to 48 rows)")
+    # the bf16 instantiation, fused_forward_kernel<true>: its registers and
+    # spills (one compile) and its shared memory at T=64 and T=100
+    bf16_kernel = [r for k, r in resources["fused_forward"].items()
+                   if "fused_forward_kernel" in k and "ILb1E" in k]
+    check(len(bf16_kernel) == 1, f"K2's bf16 instantiation in {resources}")
+    dims = (CHARADES["dim"], CHARADES["num_heads"])
+    bf16 = dict(bf16_kernel[0], smem_bytes={
+        f"T={T},W={W}": k2.smem_bytes(T, W, *dims, mxu_bf16=True)
+        for T, W in ((64, 13), (100, MAX_WLEN))})
+    print(f"K2 bf16 path: {bf16}", flush=True)
     emit({"build": {"seconds": time.perf_counter() - t0, "compiled": compiled,
                     "ptxas": resources, "fused_forward_sass_dmma": dmma,
-                    "fused_forward_sass_hmma": hmma,
+                    "fused_forward_sass_hgmma": hgmma,
+                    "fused_forward_sass_hmma": hmma, "fused_forward_bf16": bf16,
                     "arch": build.ARCH, "nvcc_flags": list(build.NVCC_FLAGS),
                     "libraries": [os.path.relpath(build.library_path(n), ROOT)
                                   for n in names]}})
@@ -1900,6 +1925,8 @@ def k2_bf16_check(W: int, resources: dict) -> dict:
         f32_ms, _ = device_times_ms(kernel_f32, per_round=20, warmup=3)
         plain_ms, _ = device_times_ms(plain, per_round=1, rounds=10, warmup=3)
         busy = device_profile(kernel, calls=10, top=1)
+        if "top_kernels" not in busy:  # in this long process the profiler
+            busy = device_profile(kernel, calls=10, top=1)  # has missed them
         flops = k2_flops(B, T, Wq)
         n_bytes = (packed.buffer.numel() * 4 + sum(a.numel() * 4 for a in args)
                    + B * T * 6 * 4)
@@ -1912,6 +1939,7 @@ def k2_bf16_check(W: int, resources: dict) -> dict:
                      .mean().item(),
                      "spans_equal_k2_f32": (spans[0] == spans[2]).all(1).float().mean().item(),
                      "ms": ms, "f32_ms": f32_ms, "busy_ms": launch_ms(busy)[0],
+                     "busy_launches_captured": launch_ms(busy)[1],
                      "plain_ms": plain_ms, "queue": queue, "flops": flops,
                      "bytes": n_bytes, "bound_ms": bound,
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -2458,8 +2486,68 @@ def graphed_vs_eager_sweeps(root: str, config, store, sub: dict, table, flat) ->
                      "pickle_bit_equal": same_rows, "batches": n, "launches": lg,
                      "seconds": {"graphed": sg, "eager": se}}
         tr._graphs = cache
+        if fused and not cfg.train.mc_droprate:
+            out[name]["repacked"] = repacked_sweep(tr, cache, flat, name,
+                                                   cfg.train.fused_mxu_bf16)
         tr.close()
     return out
+
+
+def repacked_sweep(tr: Trainer, cache, flat: dict, name: str, mxu_bf16: bool) -> dict:
+    """The fused clean sweep over the test split graphed (captured on
+    ``flat``), then on weights scaled by 1.01: the graphed sweep repacks
+    K2's f32 buffer and bf16 companion in place and replays its capture,
+    bit-equal to the eager sweep on the new weights and unlike the first."""
+    tr._graphs = cache
+    before = test_split_outputs(tr, mxu_bf16)
+    packs = [(p.buffer.data_ptr(), p.bf16.data_ptr()) for _, p in cache._packs.values()]
+    graphs = [prog.run.graph for _, prog in cache._programs.values()]
+    tr.load_params({k: v * np.float32(1.01) if v.dtype.kind == "f" else v
+                    for k, v in flat.items()})
+    got = test_split_outputs(tr, mxu_bf16)
+    tr._graphs = None
+    want = test_split_outputs(tr, mxu_bf16)
+    tr._graphs = cache
+    same = all(np.array_equal(got[k], want[k]) for k in got)
+    moved = not np.array_equal(got["start_logits"], before["start_logits"])
+    in_place = [(p.buffer.data_ptr(), p.bf16.data_ptr())
+                for _, p in cache._packs.values()] == packs
+    kept = [prog.run.graph for _, prog in cache._programs.values()]
+    replayed = len(kept) == len(graphs) and all(a is b for a, b in zip(kept, graphs))
+    check(same and moved and in_place and replayed,
+          f"graphs {name}: after a repack, graphed == eager {same}, outputs moved "
+          f"{moved}, buffers in place {in_place}, the captured graphs replayed {replayed}")
+    return {"bit_equal": same, "outputs_moved": moved, "buffers_in_place": in_place,
+            "graphs_replayed": replayed}
+
+
+def profiled_sweep(root: str, config, store, sub: dict, table, flat) -> dict:
+    """The fused_mxu_bf16 test sweep of two fresh Trainers, graphed, the
+    second under ``HUAL_PROFILE_DIR``: its graph is captured and replayed
+    inside a torch.profiler recording (``runtime/observability.trace``).
+    The IoUs are bit-equal and the trace file is written."""
+    cfg = train_config(config, "", fused_mxu_bf16=True)
+    prof_dir = os.path.join(root, "profile")
+    ious = {}
+    for profiled in (False, True):
+        tr = Trainer(cfg, sub, store, logger=logging.getLogger("chip_smoke.graphs"),
+                     device_features=table, device=DEVICE)
+        tr.load_params(flat)
+        if profiled:
+            os.environ["HUAL_PROFILE_DIR"] = prof_dir
+        try:
+            t0 = time.perf_counter()
+            ious[profiled] = (tr._sweep_ious("test"), time.perf_counter() - t0)
+        finally:
+            os.environ.pop("HUAL_PROFILE_DIR", None)
+        tr.close()
+    files = sorted(os.listdir(prof_dir)) if os.path.isdir(prof_dir) else []
+    same = bool(np.array_equal(ious[True][0], ious[False][0]))
+    check(same and len(files) == 1 and files[0].startswith("eval_sweep_test-"),
+          f"graphs: the profiled sweep bit-equal {same}, trace files {files}")
+    return {"bit_equal": same, "trace_file": files[0],
+            "trace_bytes": os.path.getsize(os.path.join(prof_dir, files[0])),
+            "seconds": {"profiled": ious[True][1], "plain": ious[False][1]}}
 
 
 def graphs_worker(root: str) -> None:
@@ -2480,10 +2568,13 @@ def graphs_worker(root: str) -> None:
         t1 = time.perf_counter()
         sweeps = graphed_vs_eager_sweeps(root, config, store, sub, table, flat)
         t2 = time.perf_counter()
+        profiled = profiled_sweep(root, config, store, sub, table, flat)
+        t3 = time.perf_counter()
     finally:
         os.chdir(here)
     emit({"queries": len(sub["train_set"]), "train": train, "sweeps": sweeps,
-          "seconds": {"train": t1 - t0, "sweeps": t2 - t1},
+          "profiled_sweep": profiled,
+          "seconds": {"train": t1 - t0, "sweeps": t2 - t1, "profiled": t3 - t2},
           "deterministic": "runtime.debug.enable_deterministic() before CUDA started"})
 
 

@@ -17,22 +17,25 @@
 //
 // The plain version is hual_tpu_torch/ops/fused_forward.py::forward_math;
 // the weights are one f32 buffer packed by pack_weights, read here in the
-// order of pack_order (a cursor walks it).
+// order of pack_order (a cursor walks it); the bf16 path reads the leaves
+// it rounds from the pack's bf16 companion instead.
 //
 // Bound on the H100: operations.  About 161 MFLOP a sample at Charades
 // width (T=64, W=13, D=128, 8 heads, 2 layers), 15.5 GFLOP at B=96, i.e.
 // 0.23 ms at 67 TFLOP/s (the f64 peak of the tensor cores) on the f64
 // path, 0.0156 ms at 989 TFLOP/s (the dense bf16 peak) on the bf16 path;
 // the bytes (3.9 MB of packed weights, 4.0 MB of inputs and outputs at
-// B=96) take ~2.4 us at 3.35 TB/s.
+// B=96) take ~2.4 us at 3.35 TB/s.  One block a sample holds one SM, so
+// this layout can reach at most one SM's share of the peak: 161 MFLOP at
+// 989/132 TFLOP/s = 21.5 us, the bf16 path's bound at any B <= 132.
 //
 // Design.  One block of 8 warps per sample walks every stage, with
 // __syncthreads() between them.
 // - Two product paths, chosen per launch (the JAX kernel's mxu_bf16): a
 //   template flag kBf16 of the kernel, threaded through the stages to the
-//   product routines (gemm, gemm_smem, narrow_dense); everything else is
-//   shared source, and the f64 instantiation has no branch of the other
-//   path (a runtime switch cost it 3%, PERF.md).  Every product at
+//   product routines (dense, gemm, attention, narrow_dense); everything
+//   else is shared source, and the f64 instantiation has no branch of the
+//   other path (a runtime switch cost it 3%, PERF.md).  Every product at
 //   least 8 outputs wide (the dense layers, the conv blocks' pointwise
 //   layers, each head's q.k^T and p.v, the CQ trilinear and its three
 //   products, cq_cat, the predictor's hidden layers) runs on the tensor
@@ -46,19 +49,68 @@
 //     SM90_16x8x4_F64F64F64F64_TN): lane l, g = l/4, t = l%4, holds
 //     A[g][t], A[g+8][t], B[t][g] and C[g][2t], C[g][2t+1], C[g+8][2t],
 //     C[g+8][2t+1].
-//   * bf16 (mxu_bf16): mma.sync m16n8k16 with bf16 operands and f32 sums
-//     (HMMA): each f32 operand is rounded to nearest even bf16 as its
-//     fragment is loaded (cvt.rn.bf16x2), k steps by 16, and the f32
-//     accumulators go through the same epilogues.  Fragments (CUTLASS's
-//     SM80_16x8x16_F32BF16BF16F32_TN): A[g][2t..2t+1], A[g+8][2t..2t+1],
-//     A[g][2t+8..2t+9], A[g+8][2t+8..2t+9]; B[2t..2t+1][g],
-//     B[2t+8..2t+9][g]; C as above.  The products that round follow the
-//     JAX kernel's mm/mmt: also the matching head and the soft label
-//     embedding (CUDA cores, operands rounded); the pooling, the tile, the
-//     row dots and the final (D,1) denses are elementwise sums or layout
-//     moves there and stay f32.  The attention scale multiplies the f32
-//     sum, after the product, as in JAX.  Zero fill covers ragged k (hd=8,
-//     Tk=13).
+//   * bf16 (mxu_bf16), redesigned for Hopper (PERF.md): bf16
+//     operands rounded to nearest even, f32 sums.  The products that round
+//     follow the JAX kernel's mm/mmt: also the matching head and the soft
+//     label embedding (CUDA cores, operands rounded); the pooling, the
+//     tile, the row dots and the final (D,1) denses are elementwise sums or
+//     layout moves there and stay f32.  The attention scale multiplies the
+//     f32 sum, after the product, as in JAX.  Rounding gives the same bits
+//     wherever it happens, so a weight rounded at pack time and an
+//     activation rounded once into an image are the operands JAX
+//     multiplies.  Against the first port of this path (mma.sync on the f64
+//     path's f32 staging, every fragment converted in the k-loop):
+//     - Weights: pack_weights keeps a bf16 companion of the leaves mm
+//       rounds, each already the shared-memory image its product reads
+//       (w^T, K-major core matrices of 8 rows x 8 values, 128 contiguous
+//       bytes, no swizzle, in slabs of 64 k): half the f32 bytes, and no
+//       conversion in the k-loop.
+//     - The weight ring: the products' order is static, so the pack's
+//       schedule lists every slab in product order; kRing = 6 slots of 16
+//       KB, each landing on its mbarrier from one bulk copy
+//       (cp.async.bulk, no tensor map) that thread 0 issues as soon as the
+//       block is past the slot's last product.  The next products' weights
+//       are in flight while a product and the stages between run: no
+//       product waits for a first slab.  A product takes at most 4 slabs
+//       (K <= 256), so the CQ attentions' (4D x D) denses run as two
+//       products of K = 2D, the second adding the first's sums.
+//     - Activations: the whole block rounds a product's rows once into the
+//       A image in shared memory (16-byte stores in the image's order,
+//       loads issued 4 chunks ahead); products that read the same rows
+//       (query/f_key/f_value, t_key/t_value, the feature encoder's q/k/v,
+//       the two bilinears) share one image.  The f32 values stay in the
+//       device workspace for the residuals and LayerNorms.
+//     - Instructions: a dense of more than 48 rows whose leaves are whole
+//       slabs (D a multiple of 64: every product at Charades width but the
+//       query stream's) runs on wgmma, A and B by descriptor: up to 64
+//       rows m64n64k16 with the warpgroups across N, up to 128 rows
+//       m64n128k16 with them across M, 4 to 16 instructions in one run
+//       with no branch between them (a loop or divergent code there makes
+//       ptxas serialise them and move the accumulators through local
+//       memory, PERF.md).  The rest (the query stream at W=13 or 30, the
+//       CQ products of two activations, ragged widths) runs mma.sync
+//       m16n8k16 on the same images with fragments from ldmatrix, each
+//       warp summing one 16 x 16 job at a time over the resident slabs.
+//       Attention runs mma.sync too, one warp per (head, 16 query rows): q,
+//       k and v rounded into per-head images (rows of up16(hd) values + 8,
+//       conflict-free), q.k^T into registers (a row of up to 112 keys), the
+//       masked softmax there (a row lies in the 4 lanes of a quad), p.v
+//       with p rounded straight from the scores' accumulators, whose
+//       layout is the A fragments'.  Zero fill covers ragged k (hd=8,
+//       Tk=13) and padded keys; padded rows and columns are never stored.
+//     - Shared memory (Bf16Layout): the image region (a dense's A image,
+//       the CQ products' two images or attention's q/k/v), the ring, its
+//       barriers and the masks: 172,388 bytes at T=64, 227,896 at T=100
+//       (one layout for both; the region is attention's at either).
+//     What stays: the CUDA-core stages (LayerNorm, depthwise taps, softmaxes,
+//     gates, CQ dots) and the activations' trips through the workspace.
+//     Fragments (CUTLASS's SM80_16x8x16_F32BF16BF16F32_TN):
+//     A[g][2t..2t+1], A[g+8][2t..2t+1], A[g][2t+8..2t+9],
+//     A[g+8][2t+8..2t+9]; B[2t..2t+1][g], B[2t+8..2t+9][g]; C as above.
+//     wgmma accumulators: thread 32w' + l of a warpgroup holds, for each 8
+//     columns j, rows 16w' + g and 16w' + g + 8 at columns 8j + 2t, 8j + 2t +
+//     1 (4 values a j).
+// The f64 path's products and attention:
 // - Each warp owns a 32x32 tile of outputs (2x4 fragments, 32 f64
 //   accumulators); the 8 warps cover 64x128, 128x64 or 256x32 outputs a
 //   pass, by the product's width, and skip fragments wholly past M or N.
@@ -81,23 +133,26 @@
 //   masked softmax over the real Tk (8 lanes a row), and p.v, with both
 //   operands read in place and no barrier inside a product: the warps take
 //   (head, tile) jobs in turn.
+// Both paths:
 // - The activations between stages stay in a per-sample workspace in
 //   device memory (fused_forward_workspace_floats: 0.49 MB a sample at
 //   T=64, 0.83 MB at T=100): 13 buffers of Lm x D, shared by activations
 //   whose lifetimes do not overlap, the CQ attention's four Lm x Lm
 //   matrices and 5 small vectors, read back through L1 and L2.
 // - Narrow products stay on the CUDA cores, summed in f64: the matching
-//   head (N=4) and the final (D,1) denses; the pooling and trilinear dots
-//   in f32.  LayerNorm holds a row in registers (a float4 a
+//   head (N=4; on the bf16 path its kernel from the companion) and the
+//   final (D,1) denses; the pooling and trilinear dots in f32.  LayerNorm holds a row in registers (a float4 a
 //   lane); the depthwise conv and the elementwise stages go 4 channels a
 //   thread.
 // - Each bilinear of a dual-attention layer is one product with K = 2D:
 //   out and the guided output share a buffer as the two halves of each
 //   row, and the packed dense_1 and dense_2 kernels are adjacent, so
-//   [out | outputs] @ [d1; d2] needs no read-modify-write epilogue.
+//   [out | outputs] @ [d1; d2] needs no read-modify-write epilogue (the
+//   bf16 path reads the two leaves' slabs one after the other).
 // - Epilogues capture by value, a product keeps its operands in locals,
 //   and it loads the lane's bias values and residuals before its first
-//   store, handing them to the epilogue: a load that follows a store it
+//   store (the bf16 path 16 outputs or one job at a time), handing them to
+//   the epilogue: a load that follows a store it
 //   may alias waits for it, output by output (PERF.md: 8% and 3% of the
 //   call).
 // - expf and true division throughout, no fast math: K1 decodes these
@@ -108,11 +163,12 @@
 // every product is a separate function (__noinline__), and the kernel's
 // pointers into the workspace are derived from the Ctx at each use, so no
 // function holds more across a call than the ABI keeps: ptxas reports 238
-// registers (f64 path) and 224 (bf16 path), 600 bytes of stack and no spills
-// (sm_90a, CUDA 12.8).
-// Resources: 256 threads; dynamic shared memory (fused_forward_smem_bytes)
-// of the stages or q/k/v, a head group's scores and the masks: 174 KB at
-// T=64, 213 KB at T=100, opted in above 48 KB with cudaFuncSetAttribute.
+// registers (f64 path) and 205 (bf16 path), 664 bytes of stack and no
+// spills (sm_90a, CUDA 12.8).
+// Resources: 256 threads; dynamic shared memory (fused_forward_smem_bytes,
+// fused_forward_bf16_smem_bytes) of the stages or q/k/v, a head group's
+// scores and the masks: 174 KB at T=64, 213 KB at T=100 (the bf16 path's
+// above), opted in above 48 KB with cudaFuncSetAttribute.
 // T and W are at most kMaxLen = 100 and D at most kMaxDim = 128, a
 // multiple of 4, so that q, k and v fit beside one head's scores (the
 // wrapper's check_kernel_shape).
@@ -147,6 +203,13 @@ constexpr int kMaxPassN = 4 * kTile;  // widest pass: 4 warps across N
 constexpr int kMaxLen = 100;          // largest T or W
 constexpr int kMaxDim = 128;          // largest D
 constexpr long kSmemLimit = 232448;   // bytes of shared memory a block may use
+
+// the bf16 path (mxu_bf16)
+constexpr int kRing = 6;              // weight slabs in flight
+constexpr int kKSlab = 64;            // k depth of a weight slab
+constexpr int kSlotValues = kMaxDim * kKSlab;  // bf16 values of a ring slot
+constexpr int kSyncRows = 48;         // products of up to 48 rows run on mma.sync
+constexpr int kMaxKeyFrags = 14;      // 8-key fragments of a score row (Tk <= 112)
 
 // Per-sample workspace: kBuffers buffers of Lm x D (Lm = max(T, W)), the
 // CQ attention's 4 matrices of Lm x Lm and 5 small vectors.  Buffers whose
@@ -207,15 +270,6 @@ __device__ __forceinline__ void dmma_16x8x4(double (&d)[4], double a0,
       : "d"(a0), "d"(a1), "d"(b0));
 }
 
-// d += a . b for one m16n8k16 fragment: bf16 operands, f32 sums.
-__device__ __forceinline__ void hmma_16x8x16(float (&d)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // lo and hi rounded to nearest even bf16 and packed, lo in the low half
 // (the element of the lower k).
 __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
@@ -227,6 +281,11 @@ __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
 // x rounded to nearest even bf16, as an f32.
 __device__ __forceinline__ float round_bf16(float x) {
   return __uint_as_float(bf16x2(x, 0.0f) << 16);
+}
+
+// A bf16 value (its bits) as an f32.
+__device__ __forceinline__ float bf16f(uint16_t v) {
+  return __uint_as_float(static_cast<uint32_t>(v) << 16);
 }
 
 // Copies N (4 or 16) bytes from device to shared memory, or writes
@@ -252,6 +311,185 @@ template <int pending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
 }
+
+// -- PTX of the bf16 path: ldmatrix, wgmma, mbarriers, bulk copies ----------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 matrices of 16-bit values from shared memory: lane l gives the
+// address of row l%8 of matrix l/8 (16 bytes); r[i] gets, of matrix i, row
+// l/4, columns 2(l%4) and 2(l%4)+1 (the lower column in the low half), or
+// with .trans row 2(l%4) and 2(l%4)+1 of column l/4.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row))
+               : "memory");
+}
+
+// A wgmma operand descriptor: K-major, no swizzle (core matrices of 8 rows
+// x 16 bytes, 128 contiguous bytes each); lbo: bytes between core matrices
+// adjacent in K, sbo: between core matrices adjacent in M or N.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3ffff) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accesses of an accumulator across wgmma
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// generic-proxy writes of shared memory made visible to wgmma and bulk copies
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Waits until the phase of `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Copies `bytes` (a multiple of 16, both ends 16-byte aligned) from device
+// to shared memory; the copy arrives on `bar`, which expects the bytes.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// d (+)= a . b over one k16 step of a 64 x 64 tile: a and b by descriptor
+// from shared memory (K-major), f32 sums; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= a . b over one k16 step of a 64 x 128 tile: a and b by descriptor
+// from shared memory (K-major), f32 sums; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ constexpr int up16(int v) { return (v + 15) / 16 * 16; }
+
+// Rows of a bf16 product's A image: mma.sync tiles of 16 up to kSyncRows
+// rows, wgmma tiles of 64 above.
+__host__ __device__ constexpr int bf16_rows(int M) {
+  return M <= kSyncRows ? up16(M) : (M + 63) / 64 * 64;
+}
+
+// Dynamic shared memory of the bf16 path, in bytes: the image region (a
+// dense's A image, a product of two activations' A and B images, or an
+// attention's q, k and v images), the ring of weight slabs, its mbarriers
+// and the two masks.
+struct Bf16Layout {
+  long ring, bars, masks, bytes;
+  int qkv_rows;  // rows of a head's q, k or v image
+  __host__ __device__ Bf16Layout(int T, int W, int D, int H) {
+    const int lm = imax(T, W), rows = bf16_rows(lm);
+    const int kdense = imax(2 * up16(D), up16(2 * D));  // K <= 2D a product
+    const int kact = up16(imax(lm, D));
+    const long dense = 2L * rows * kdense;
+    const long act = 2L * rows * kact + 2L * kact * kact;
+    qkv_rows = up16(lm);
+    const long attn = 2L * 3 * H * qkv_rows * (up16(D / H) + 8);
+    const long region = dense > act ? (dense > attn ? dense : attn)
+                                    : (act > attn ? act : attn);
+    ring = (region + 127) / 128 * 128;
+    bars = ring + 2L * kRing * kSlotValues;
+    masks = bars + 8L * kRing;
+    bytes = masks + 4L * (T + W);
+  }
+};
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -362,6 +600,14 @@ struct Ctx {
   int lds, heads;
   float* ws;         // the sample's workspace: buffers of ld floats
   long ld;
+  // the bf16 path
+  uint16_t* img;          // the image region (Bf16Layout)
+  uint16_t* ring;         // kRing slots of kSlotValues
+  uint64_t* full;         // per slot: its slab has landed
+  const uint16_t* wbf;    // the bf16 companion of the packed weights
+  const int* sched;       // the ring's slabs in order: byte offset, bytes
+  int nsched, qkv_rows, match_bf, label_bf;
+  mutable int slab;       // the next slab this thread consumes
 };
 
 // A row-major matrix: element (r, c) at p[r * ld + c].
@@ -409,14 +655,14 @@ __device__ __forceinline__ void stage_tile(float* dst, int lds, const float* src
 // the same M and N).  A is row-major (M x K) in device memory; B is
 // row-major (K x N) in device memory, or with kBNT stored as N x K (B[k, n]
 // at b.p[n * ld + k]).  Both are staged through shared memory in k-slabs
-// of f32; each fragment is converted in the k-loop: to f64, products and
-// sums in f64 (DMMA), or with kBf16 to bf16, sums in f32 (HMMA).  Ends
-// with the block synchronised after its last read of shared memory.
-template <bool kBNT, bool kBf16, class Epi>
-__device__ __noinline__ void gemm(int M, int N, int K, Mat a, Mat b,
-                                  const float* bias, const float* res,
-                                  const Ctx& x, Epi epi_arg) {
-  using Acc = std::conditional_t<kBf16, float, double>;
+// of f32; each fragment is converted to f64 in the k-loop, products and
+// sums in f64 (DMMA).  Ends with the block synchronised after its last
+// read of shared memory.
+template <bool kBNT, class Epi>
+__device__ __noinline__ void gemm_f64(int M, int N, int K, Mat a, Mat b,
+                                      const float* bias, const float* res,
+                                      const Ctx& x, Epi epi_arg) {
+  using Acc = double;
   // locals, not reloads from x after each cp.async wait (a memory clobber)
   const Epi epi = epi_arg;
   float* const stage = x.stage;
@@ -470,41 +716,6 @@ __device__ __noinline__ void gemm(int M, int N, int K, Mat a, Mat b,
         const float* Bs = As + a_floats;
         if (mi_n == 0 || nj_n == 0) {
           // no live fragment in this warp's tile
-        } else if constexpr (kBf16) {
-          // k16 steps over the slab; its zero fill pads a ragged K
-          const int steps = (min(kSlab, K - s * kSlab) + 15) >> 4;
-          for (int kk = 0; kk < steps; ++kk) {
-            const int k = kk * 16 + 2 * t;
-            uint32_t av[2][4], bv[4][2];
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-              const float* r0 = As + (wm + i * 16 + g) * kSlabLd + k;
-              const float* r8 = r0 + 8 * kSlabLd;
-              av[i][0] = bf16x2(r0[0], r0[1]);
-              av[i][1] = bf16x2(r8[0], r8[1]);
-              av[i][2] = bf16x2(r0[8], r0[9]);
-              av[i][3] = bf16x2(r8[8], r8[9]);
-            }
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int c = wn + j * 8 + g;
-              if (kBNT) {
-                const float* bp = Bs + c * kSlabLd + k;
-                bv[j][0] = bf16x2(bp[0], bp[1]);
-                bv[j][1] = bf16x2(bp[8], bp[9]);
-              } else {
-                const float* bp = Bs + k * bld + c;
-                bv[j][0] = bf16x2(bp[0], bp[bld]);
-                bv[j][1] = bf16x2(bp[8 * bld], bp[9 * bld]);
-              }
-            }
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-#pragma unroll
-              for (int j = 0; j < 4; ++j)
-                if (i < mi_n && j < nj_n)  // warp-uniform
-                  hmma_16x8x16(acc[i][j], av[i], bv[j][0], bv[j][1]);
-          }
         } else {
           const int steps = (min(kSlab, K - s * kSlab) + 3) >> 2;
 #pragma unroll 2
@@ -578,28 +789,26 @@ __device__ __noinline__ void gemm(int M, int N, int K, Mat a, Mat b,
   }
 }
 
-// A dense layer: epi(m, n, x[m, :] @ d.w[:, n] + d.b[n], res[m, n] or 0);
-// x is (M, K) row-major with rows lda floats apart, d.w (K, N), d.b (N,)
-// or null, res (M, N) or null.
-template <bool kBf16, class Epi>
-__device__ void dense(const float* in, int lda, int M, int K, int N, Dense d,
-                      const Ctx& x, Epi epi, const float* res = nullptr) {
-  gemm<false, kBf16>(M, N, K, Mat{in, lda}, Mat{d.w, N}, d.b, res, x, epi);
-}
 
-// The same for a narrow N (the matching head, the (D,1) denses): one
+// A dense layer of narrow N (the matching head, the (D,1) denses): one
 // thread per output on the CUDA cores, f64 sums in order over k; with
-// kRound both operands are rounded to bf16 first.
+// kRound the activations are rounded to bf16 first and w holds bf16 values
+// (the companion's copy of the weight).
 template <bool kRound, class Epi>
-__device__ __noinline__ void narrow_dense(const float* in, int M, int K, int N,
-                             const float* w, Epi epi) {
+__device__ __noinline__ void narrow_dense(
+    const float* in, int M, int K, int N,
+    const std::conditional_t<kRound, uint16_t, float>* w, Epi epi) {
   for (int e = threadIdx.x; e < M * N; e += kThreads) {
     const int m = e / N, n = e % N;
     const float* xr = in + static_cast<long>(m) * K;
     double acc = 0.0;
     for (int k = 0; k < K; ++k) {
       const float a = kRound ? round_bf16(xr[k]) : xr[k];
-      const float b = kRound ? round_bf16(w[k * N + n]) : w[k * N + n];
+      float b;
+      if constexpr (kRound)
+        b = bf16f(w[k * N + n]);
+      else
+        b = w[k * N + n];
       acc = fma(static_cast<double>(a), static_cast<double>(b), acc);
     }
     epi(m, n, static_cast<float>(acc));
@@ -670,6 +879,345 @@ __device__ __noinline__ void row_dots(const float* x, int L, int D,
   }
 }
 
+// -- the bf16 path's products -------------------------------------------------
+// Images.  Every bf16 operand in shared memory is K-major in core matrices
+// of 8 rows x 8 values (128 contiguous bytes, no swizzle): for an image kw
+// values wide, core matrix (r/8, c/8) starts at value ((r/8) * (kw/8) +
+// c/8) * 64 and row r%8 of it 8 values further on.  That is the canonical
+// layout a wgmma descriptor names with layout type 0 (LBO 128 bytes between
+// core matrices along K, SBO kw * 16 bytes between 8-row groups), and each
+// core matrix is one 8x8 matrix of ldmatrix, free of bank conflicts.
+
+// Rounds rows [0, M) of the f32 matrix `in` (row stride lda) into an image
+// kw = up16(k0) + up16(k1) values wide: image columns [0, k0) from
+// in[:, 0:k0], [up16(k0), up16(k0) + k1) from in[:, k0:k0 + k1], zeros in
+// the rest of those rows.  Rows past M are left as they are: they only
+// reach outputs that are never stored.  Thread e writes bytes [16e, 16e+16).
+__device__ __noinline__ void stage_image(uint16_t* img, const float* in, int lda,
+                                         int M, int k0, int k1) {
+  constexpr int kBatch = 4;  // chunks a thread loads before it stores
+  const int s0 = up16(k0), chunks = (s0 + up16(k1)) / 8;
+  const int total = (M + 7) / 8 * chunks * 8;
+  const bool vec = rows_aligned(in, lda, k0) && k1 % 4 == 0;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int e0 = threadIdx.x; e0 < total; e0 += kBatch * kThreads) {
+    float4 a[kBatch], b[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int e = e0 + i * kThreads;
+      const int r = (e >> 3) / chunks * 8 + (e & 7), c = ((e >> 3) % chunks) * 8;
+      a[i] = b[i] = zero;
+      if (e >= total || r >= M) continue;
+      const bool first = c < s0;
+      const int col = first ? c : k0 + c - s0;      // the chunk's source column
+      const int n = first ? k0 - c : k1 - (c - s0);  // its values in the matrix
+      const float* src = in + static_cast<long>(r) * lda + col;
+      if (vec) {
+        if (n > 0) a[i] = ld4(src);
+        if (n > 4) b[i] = ld4(src + 4);
+      } else {
+        a[i] = make_float4(n > 0 ? src[0] : 0.0f, n > 1 ? src[1] : 0.0f,
+                           n > 2 ? src[2] : 0.0f, n > 3 ? src[3] : 0.0f);
+        b[i] = make_float4(n > 4 ? src[4] : 0.0f, n > 5 ? src[5] : 0.0f,
+                           n > 6 ? src[6] : 0.0f, n > 7 ? src[7] : 0.0f);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int e = e0 + i * kThreads;
+      if (e >= total || (e >> 3) / chunks * 8 + (e & 7) >= M) continue;
+      *reinterpret_cast<uint4*>(img + 8L * e) =
+          make_uint4(bf16x2(a[i].x, a[i].y), bf16x2(a[i].z, a[i].w),
+                     bf16x2(b[i].x, b[i].y), bf16x2(b[i].z, b[i].w));
+    }
+  }
+}
+
+// The same for the transpose of a row-major K x N matrix: image row n <
+// N holds src[k * ld + n] for k < K, zeros to up16(K).
+__device__ __noinline__ void stage_image_t(uint16_t* img, const float* src, int ld,
+                                           int N, int K) {
+  constexpr int kBatch = 2;
+  const int chunks = up16(K) / 8, total = (N + 7) / 8 * chunks * 8;
+  for (int e0 = threadIdx.x; e0 < total; e0 += kBatch * kThreads) {
+    float v[kBatch][8];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int e = e0 + i * kThreads;
+      const int n = (e >> 3) / chunks * 8 + (e & 7), c = ((e >> 3) % chunks) * 8;
+      const bool live = e < total && n < N;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        v[i][j] = live && c + j < K ? src[static_cast<long>(c + j) * ld + n] : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int e = e0 + i * kThreads;
+      if (e >= total || (e >> 3) / chunks * 8 + (e & 7) >= N) continue;
+      *reinterpret_cast<uint4*>(img + 8L * e) =
+          make_uint4(bf16x2(v[i][0], v[i][1]), bf16x2(v[i][2], v[i][3]),
+                     bf16x2(v[i][4], v[i][5]), bf16x2(v[i][6], v[i][7]));
+    }
+  }
+}
+
+// The weight ring.  The products that read a packed weight walk the bf16
+// companion's slabs (kKSlab values of k of one leaf, its N rows, an image
+// of its own) in the order x.sched lists them, which is the order of the
+// products: slab s lands in slot s % kRing, announced by full[slot] in
+// phase s / kRing.  A product waits for all its slabs (at most kRing),
+// runs its products on them in one batch, and once the block is past them
+// thread 0 refills their slots with the slabs kRing further on: the next
+// products' weights are in flight while this one and the stages between
+// run.  Nothing divergent runs between a product's wgmma instructions.
+__device__ __forceinline__ const uint16_t* ring_slot(const Ctx& x, int s) {
+  return x.ring + (s % kRing) * kSlotValues;
+}
+
+__device__ __forceinline__ void ring_wait(const Ctx& x, int s) {
+  mbar_wait(x.full + s % kRing, (s / kRing) & 1);
+}
+
+// After a barrier past every read of slabs [s0, s0 + n): their slots take
+// slabs s0 + kRing, ... (thread 0 issues the bulk copies).
+__device__ __forceinline__ void ring_refill(const Ctx& x, int s0, int n) {
+  if (threadIdx.x == 0)
+    for (int s = s0 + kRing; s < s0 + kRing + n && s < x.nsched; ++s)
+      bulk_copy(x.ring + (s % kRing) * kSlotValues,
+                reinterpret_cast<const char*>(x.wbf) + x.sched[2 * s],
+                x.sched[2 * s + 1], x.full + s % kRing);
+}
+
+__device__ __forceinline__ void hmma4(float& d0, float& d1, float& d2, float& d3,
+                                      const uint32_t (&a)[4], uint32_t b0,
+                                      uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The bf16 products on mma.sync: epi(m, n, sum + bias[n], res[m, n] or 0)
+// for C (M x N) = A . B^T summed over `ns` slabs, slab(i, b, kw, ka) giving
+// slab i's B image b (kw values wide, a multiple of 16) and its columns
+// [ka, ka + kw) of the A image (a_kw values wide).  Every slab is in shared
+// memory: the warps take 16 x 16 jobs in turn, each summed over all slabs
+// with fragments from ldmatrix and stored at once (its bias values and
+// residuals loaded before its first store).
+template <class SlabFn, class Epi>
+__device__ __forceinline__ void sync_products(const uint16_t* A, int a_kw, int ns,
+                                              SlabFn slab, int M, int N,
+                                              const float* bias, const float* res,
+                                              Epi epi) {
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int g = lane >> 2, t = lane & 3;
+  const int nt = (N + 15) / 16, jobs = (M + 15) / 16 * nt;
+  for (int job = warp; job < jobs; job += kWarps) {
+    const int m0 = job / nt * 16, n0 = job % nt * 16;
+    float acc[8];
+#pragma unroll
+    for (int v = 0; v < 8; ++v) acc[v] = 0.0f;
+    // lane l addresses row l%8 of matrix l/8: A's are (rows 0-7, k 0-7),
+    // (8-15, 0-7), (0-7, 8-15), (8-15, 8-15); B's (n 0-7, k 0-7), (0-7,
+    // 8-15), (8-15, 0-7), (8-15, 8-15)
+    const int ar = m0 + (lane & 7) + 8 * ((lane >> 3) & 1);
+    const int br = n0 + (lane & 7) + 8 * (lane >> 4);
+    for (int i = 0; i < ns; ++i) {
+      const uint16_t* b;
+      int kw, ka;
+      slab(i, b, kw, ka);
+      const int ac = ka + 8 * (lane >> 4), bc = 8 * ((lane >> 3) & 1);
+      const uint16_t* ap = A + ((ar >> 3) * (a_kw >> 3) + (ac >> 3)) * 64 + (ar & 7) * 8;
+      const uint16_t* bp = b + ((br >> 3) * (kw >> 3) + (bc >> 3)) * 64 + (br & 7) * 8;
+      for (int kk = 0; kk < kw / 16; ++kk) {
+        uint32_t fa[4], fb[4];
+        ldsm_x4(fa, ap + kk * 128);
+        ldsm_x4(fb, bp + kk * 128);
+        hmma4(acc[0], acc[1], acc[2], acc[3], fa, fb[0], fb[1]);
+        hmma4(acc[4], acc[5], acc[6], acc[7], fa, fb[2], fb[3]);
+      }
+    }
+    // acc[4f + 2h + q]: row m0 + g + 8h, column n0 + 8f + 2t + q
+    float bv[8], rv[8];
+#pragma unroll
+    for (int v = 0; v < 8; ++v) {
+      const int m = m0 + g + 8 * ((v >> 1) & 1), n = n0 + 8 * (v >> 2) + 2 * t + (v & 1);
+      const bool ok = m < M && n < N;
+      bv[v] = bias != nullptr && ok ? bias[n] : 0.0f;
+      rv[v] = res != nullptr && ok ? res[static_cast<long>(m) * N + n] : 0.0f;
+    }
+#pragma unroll
+    for (int v = 0; v < 8; ++v) {
+      const int m = m0 + g + 8 * ((v >> 1) & 1), n = n0 + 8 * (v >> 2) + 2 * t + (v & 1);
+      if (m >= M || n >= N) continue;
+      float r = acc[v];
+      if (bias != nullptr) r = r + bv[v];
+      epi(m, n, r, rv[v]);
+    }
+  }
+}
+
+// The wgmma products of a dense layer whose kSlabs slabs (from slab s0 of
+// the ring) are each kKSlab deep: A is the image of kSlabs * kKSlab values
+// of k.  kRows 64: warpgroup w takes the 64 x 64 tile of columns [64w,
+// 64w + 64) (m64n64k16); kRows 128: rows [64w, 64w + 64), all 128 columns
+// (m64n128k16).  The instructions are issued in one straight run (no
+// branch between them), committed and waited for once; then the
+// epilogue, 16 outputs at a time (their bias values and residuals loaded
+// first).  A warpgroup whose columns lie past N computes them all the same
+// and stores none.
+template <int kRows, int kSlabs, class Epi>
+__device__ __forceinline__ void wgmma_products(const Ctx& x, int s0, int M, int N,
+                                               const float* bias, const float* res,
+                                               Epi epi) {
+  constexpr int kN = kRows == 64 ? 32 : 64, kAkw = kSlabs * kKSlab;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int g = lane >> 2, t = lane & 3, wg = warp / 4;
+  const int m0 = kRows == 64 ? 0 : 64 * wg, n0 = kRows == 64 ? 64 * wg : 0;
+  const uint64_t da = wgmma_desc(x.img + (m0 >> 3) * (kAkw >> 3) * 64, 128, kAkw * 16);
+  uint64_t db[kSlabs];
+#pragma unroll
+  for (int i = 0; i < kSlabs; ++i)
+    db[i] = wgmma_desc(ring_slot(x, s0 + i) + (n0 >> 3) * (kKSlab >> 3) * 64, 128,
+                       kKSlab * 16);
+  float acc[kN];
+  reg_fence(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int i = 0; i < kSlabs; ++i)
+#pragma unroll
+    for (int kk = 0; kk < kKSlab / 16; ++kk) {  // + 256 bytes: 16 in the address field
+      const uint64_t a = da + 16 * (kKSlab / 16 * i + kk), b = db[i] + 16 * kk;
+      if constexpr (kRows == 64)
+        wgmma_m64n64k16(acc, a, b, i + kk > 0);
+      else
+        wgmma_m64n128k16(acc, a, b, i + kk > 0);
+    }
+  wgmma_commit();
+  wgmma_wait();
+  reg_fence(acc);
+  __syncthreads();  // the A image and the slots are free
+  ring_refill(x, s0, kSlabs);
+  // acc[4j + 2h + q]: row m0 + 16 (warp % 4) + g + 8h, column n0 + 8j + 2t + q
+#pragma unroll
+  for (int c = 0; c < kN; c += 16) {
+    float bv[16], rv[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int v = c + i;
+      const int m = m0 + 16 * (warp % 4) + g + 8 * ((v >> 1) & 1);
+      const int n = n0 + 8 * (v >> 2) + 2 * t + (v & 1);
+      const bool ok = m < M && n < N;
+      bv[i] = bias != nullptr && ok ? bias[n] : 0.0f;
+      rv[i] = res != nullptr && ok ? res[static_cast<long>(m) * N + n] : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int v = c + i;
+      const int m = m0 + 16 * (warp % 4) + g + 8 * ((v >> 1) & 1);
+      const int n = n0 + 8 * (v >> 2) + 2 * t + (v & 1);
+      if (m >= M || n >= N) continue;
+      float r = acc[v];
+      if (bias != nullptr) r = r + bv[i];
+      epi(m, n, r, rv[i]);
+    }
+  }
+}
+
+// A dense layer on the bf16 path: epi(m, n, in[m, :] @ W[:, n] + bias[n],
+// res[m, n] or 0), `in` (M x K, rows lda floats apart) rounded into the A
+// image, W from the ring: one leaf (K x N), or with seg < K two (seg x N,
+// then (K - seg) x N: a bilinear's [d1; d2]), each in slabs of kKSlab, at
+// most kRing slabs in all (K <= 256).  `staged`: the A image already holds
+// these rows (the previous product read the same input).  Products of more
+// than kSyncRows rows whose leaves are whole slabs deep (D a multiple of
+// 64) run on wgmma, the rest on mma.sync.  Ends with the block
+// synchronised after its last read of shared memory.
+template <class Epi>
+__device__ __noinline__ void dense_bf16(const float* in, int lda, int M, int K,
+                                        int N, const float* bias, const float* res,
+                                        int seg, bool staged, const Ctx& x,
+                                        Epi epi) {
+  const int k1 = K - seg, kp0 = up16(seg), kp1 = up16(k1), a_kw = kp0 + kp1;
+  const int n0 = (kp0 + kKSlab - 1) / kKSlab, n1 = (kp1 + kKSlab - 1) / kKSlab;
+  const int ns = n0 + n1, s0 = x.slab;
+  x.slab = s0 + ns;
+  if (!staged) {
+    stage_image(x.img, in, lda, M, seg, k1);
+    fence_proxy_async();
+    __syncthreads();
+  }
+  for (int i = 0; i < ns; ++i) ring_wait(x, s0 + i);
+  __syncwarp();
+  const bool whole = kp0 % kKSlab == 0 && kp1 % kKSlab == 0 && M > kSyncRows;
+  const int shape = whole ? (M > 64 ? 8 : 0) + ns : 0;
+  switch (shape) {
+    case 1: wgmma_products<64, 1>(x, s0, M, N, bias, res, epi); return;
+    case 2: wgmma_products<64, 2>(x, s0, M, N, bias, res, epi); return;
+    case 4: wgmma_products<64, 4>(x, s0, M, N, bias, res, epi); return;
+    case 9: wgmma_products<128, 1>(x, s0, M, N, bias, res, epi); return;
+    case 10: wgmma_products<128, 2>(x, s0, M, N, bias, res, epi); return;
+    case 12: wgmma_products<128, 4>(x, s0, M, N, bias, res, epi); return;
+    default: break;
+  }
+  // slab i: the first leaf's, then the second's
+  sync_products(x.img, a_kw, ns, [&](int i, const uint16_t*& b, int& kw, int& ka) {
+    const int k0 = (i < n0 ? i : i - n0) * kKSlab;
+    kw = min(kKSlab, (i < n0 ? kp0 : kp1) - k0);
+    ka = (i < n0 ? 0 : kp0) + k0;
+    b = ring_slot(x, s0 + i);
+  }, M, N, bias, res, epi);
+  __syncthreads();  // the A image and the slots are free
+  ring_refill(x, s0, ns);
+}
+
+// A product of two activations on the bf16 path (the CQ attention's):
+// epi(m, n, sum_k A[m, k] * B[k, n], 0), A row-major M x K, B row-major
+// K x N or with kBNT stored N x K, both rounded into images; on mma.sync.
+// Ends with the block synchronised after its last read of shared memory.
+template <bool kBNT, class Epi>
+__device__ __noinline__ void gemm_bf16(int M, int N, int K, Mat a, Mat b,
+                                       const Ctx& x, Epi epi) {
+  const int kp = up16(K);
+  uint16_t* bimg = x.img + static_cast<long>(bf16_rows(M)) * kp;
+  stage_image(x.img, a.p, a.ld, M, K, 0);
+  if (kBNT)
+    stage_image(bimg, b.p, b.ld, N, K, 0);
+  else
+    stage_image_t(bimg, b.p, b.ld, N, K);
+  __syncthreads();
+  sync_products(x.img, kp, 1, [&](int, const uint16_t*& bp, int& kw, int& ka) {
+    bp = bimg;
+    kw = kp;
+    ka = 0;
+  }, M, N, nullptr, nullptr, [&](int m, int n, float v, float) { epi(m, n, v, 0.0f); });
+  __syncthreads();  // the images are free
+}
+
+// A dense layer: epi(m, n, x[m, :] @ d.w[:, n] + d.b[n], res[m, n] or 0);
+// x is (M, K) row-major with rows lda floats apart, d.w (K, N), d.b (N,)
+// or null, res (M, N) or null.  The bf16 path reads the weight from the
+// ring (see dense_bf16 for seg and staged).
+template <bool kBf16, class Epi>
+__device__ void dense(const float* in, int lda, int M, int K, int N, Dense d,
+                      const Ctx& x, Epi epi, const float* res = nullptr,
+                      int seg = 0, bool staged = false) {
+  if constexpr (kBf16)
+    dense_bf16(in, lda, M, K, N, d.b, res, seg > 0 ? seg : K, staged, x, epi);
+  else
+    gemm_f64<false>(M, N, K, Mat{in, lda}, Mat{d.w, N}, d.b, res, x, epi);
+}
+
+// A product of two activations (see gemm_f64 and gemm_bf16).
+template <bool kBNT, bool kBf16, class Epi>
+__device__ void gemm(int M, int N, int K, Mat a, Mat b, const float* bias,
+                     const float* res, const Ctx& x, Epi epi) {
+  if constexpr (kBf16)
+    gemm_bf16<kBNT>(M, N, K, a, b, x, epi);
+  else
+    gemm_f64<kBNT>(M, N, K, a, b, bias, res, x, epi);
+}
+
 // x (L x D) in place: kConvLayers x {LN -> depthwise k=7 SAME, zero padding
 // at both ends of L, mask ignored -> pointwise + bias -> relu -> + residual}.
 template <bool kBf16>
@@ -727,14 +1275,13 @@ __device__ void copy_rows(float* dst, int ldd, const float* src, int rows,
 // N and K): A_bi[m, k] = a[bi * a_bs + m * lda + k]; B_bi[k, n] =
 // b[bi * b_bs + k * ldb + n], or with kBNT b[bi * b_bs + n * ldb + k].  The
 // warps take (bi, 32x32 tile) jobs in turn, with no barrier: nothing is
-// staged.  Products and sums in f64 on the tensor cores, or with kBf16 on
-// bf16 operands with f32 sums.
-template <bool kBNT, bool kBf16, class Epi>
+// staged.  Products and sums in f64 on the tensor cores.
+template <bool kBNT, class Epi>
 __device__ __noinline__ void gemm_smem(int nb, int M, int N, int K,
                                        const float* a, int a_bs, int lda,
                                        const float* b, int b_bs, int ldb,
                                        Epi epi_arg) {
-  using Acc = std::conditional_t<kBf16, float, double>;
+  using Acc = double;
   const Epi epi = epi_arg;  // a local copy: no reloads after stores
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int g = lane >> 2, t = lane & 3;
@@ -753,39 +1300,7 @@ __device__ __noinline__ void gemm_smem(int nb, int M, int N, int K,
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int v = 0; v < 4; ++v) acc[i][j][v] = 0;
-    if constexpr (kBf16) {
-      // k16 steps, zeros past M, N and K
-      auto at = [&](int m, int k) {
-        return k < K && m < M ? A[m * lda + k] : 0.0f;
-      };
-      auto bt = [&](int k, int n) {
-        return k < K && n < N ? (kBNT ? Bm[n * ldb + k] : Bm[k * ldb + n]) : 0.0f;
-      };
-      for (int k0 = 0; k0 < K; k0 += 16) {
-        const int k = k0 + 2 * t;
-        uint32_t av[2][4], bv[4][2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int m = m0 + i * 16 + g;
-          av[i][0] = bf16x2(at(m, k), at(m, k + 1));
-          av[i][1] = bf16x2(at(m + 8, k), at(m + 8, k + 1));
-          av[i][2] = bf16x2(at(m, k + 8), at(m, k + 9));
-          av[i][3] = bf16x2(at(m + 8, k + 8), at(m + 8, k + 9));
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = n0 + j * 8 + g;
-          bv[j][0] = bf16x2(bt(k, n), bt(k + 1, n));
-          bv[j][1] = bf16x2(bt(k + 8, n), bt(k + 9, n));
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (i < mi_n && j < nj_n)  // warp-uniform
-              hmma_16x8x16(acc[i][j], av[i], bv[j][0], bv[j][1]);
-      }
-    } else {
+    {
 #pragma unroll 2
       for (int k0 = 0; k0 < K; k0 += 4) {
         const int k = k0 + t;
@@ -834,11 +1349,10 @@ __device__ __noinline__ void gemm_smem(int nb, int M, int N, int K,
 // time: their scores, the masked softmax over the real Tk, and p.v, all in
 // shared memory.  An all-padding `from` row gets -1e30 on every score: the
 // finite part is absorbed and the row attends uniformly over the real Tk.
-template <bool kBf16>
-__device__ __noinline__ void attention(const float* q, const float* k,
-                                       const float* v, const float* fm,
-                                       const float* tm, int Tq, int Tk,
-                                       const Ctx& x, float scale, float* out) {
+__device__ __noinline__ void attention_f64(const float* q, const float* k,
+                                           const float* v, const float* fm,
+                                           const float* tm, int Tq, int Tk,
+                                           const Ctx& x, float scale, float* out) {
   const int D = x.D, hd = D / x.H, lds = x.lds, G = x.heads;
   const int ldq = D + 4, ldv = D + 8;
   float* Qs = x.stage;  // the stages are free between products
@@ -854,7 +1368,7 @@ __device__ __noinline__ void attention(const float* q, const float* k,
   __syncthreads();
   for (int h0 = 0; h0 < x.H; h0 += G) {
     // the scale multiplies the f32 sum, after the product, as in JAX
-    gemm_smem<true, kBf16>(G, Tq, Tk, hd, Qs + h0 * hd, hd, ldq, Ks + h0 * hd,
+    gemm_smem<true>(G, Tq, Tk, hd, Qs + h0 * hd, hd, ldq, Ks + h0 * hd,
                            hd, ldq, [=](int g, int i, int j, float acc) {
                              S[g * s_bs + i * lds + j] =
                                  acc * scale + (1.0f - fm[i] * tm[j]) * kMask;
@@ -862,12 +1376,191 @@ __device__ __noinline__ void attention(const float* q, const float* k,
     __syncthreads();
     softmax_rows(S, G * Tq, Tk, lds);
     __syncthreads();
-    gemm_smem<false, kBf16>(G, Tq, hd, Tk, S, s_bs, lds, Vs + h0 * hd, hd, ldv,
+    gemm_smem<false>(G, Tq, hd, Tk, S, s_bs, lds, Vs + h0 * hd, hd, ldv,
                             [=](int g, int i, int c, float acc) {
                               out[i * D + (h0 + g) * hd + c] = acc;
                             });
     __syncthreads();
   }
+}
+
+// Rounds the rows of src (L x D, row-major) head by head into images of
+// x.qkv_rows rows of `pitch` values: head h's columns [hd h, hd h + hd)
+// go to img + h * head, row r at r * pitch; zeros in columns [hd, up16(hd))
+// and rows [L, up16(L)).
+__device__ void stage_heads(uint16_t* img, const float* src, int L, int D, int H,
+                            int pitch, long head) {
+  constexpr int kBatch = 4;  // values of 4 a thread loads before it stores
+  const int hd = D / H, q4 = up16(hd) / 4, L16 = up16(L), total = H * L16 * q4;
+  const bool vec = hd % 4 == 0;
+  for (int e0 = threadIdx.x; e0 < total; e0 += kBatch * kThreads) {
+    float4 v[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int e = e0 + i * kThreads;
+      const int c = e % q4 * 4, r = e / q4 % L16, h = e / (q4 * L16);
+      v[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (e >= total || r >= L) continue;
+      const float* p = src + static_cast<long>(r) * D + h * hd + c;
+      if (vec) {
+        if (c < hd) v[i] = ld4(p);
+      } else {
+        v[i] = make_float4(c < hd ? p[0] : 0.0f, c + 1 < hd ? p[1] : 0.0f,
+                           c + 2 < hd ? p[2] : 0.0f, c + 3 < hd ? p[3] : 0.0f);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int e = e0 + i * kThreads;
+      if (e >= total) continue;
+      const int c = e % q4 * 4, r = e / q4 % L16, h = e / (q4 * L16);
+      *reinterpret_cast<uint2*>(img + h * head + r * pitch + c) =
+          make_uint2(bf16x2(v[i].x, v[i].y), bf16x2(v[i].z, v[i].w));
+    }
+  }
+}
+
+// Multi-head attention on the bf16 path, the function of attention_f64:
+// q, k and v rounded into per-head images (rows of up16(hd) values and 8
+// of padding, so ldmatrix is free of bank conflicts), then one warp per
+// (head, 16 query rows): q.k^T on mma.sync into registers (a row of up to
+// 112 keys), the scale and mask, the softmax over the real Tk in registers
+// (a row's values lie in the 4 lanes of a quad), and p.v with p rounded as
+// the A fragments: the scores' accumulator layout is the A fragment layout.
+__device__ __noinline__ void attention_bf16(const float* q, const float* k,
+                                            const float* v, const float* fm,
+                                            const float* tm, int Tq, int Tk,
+                                            const Ctx& x, float scale, float* out) {
+  const int D = x.D, H = x.H, hd = D / H, hd16 = up16(hd), pitch = hd16 + 8;
+  const long head = static_cast<long>(x.qkv_rows) * pitch;
+  uint16_t* Qs = x.img;
+  uint16_t* Ks = Qs + H * head;
+  uint16_t* Vs = Ks + H * head;
+  stage_heads(Qs, q, Tq, D, H, pitch, head);
+  stage_heads(Ks, k, Tk, D, H, pitch, head);
+  stage_heads(Vs, v, Tk, D, H, pitch, head);
+  __syncthreads();
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int g = lane >> 2, t = lane & 3;
+  const int nqt = (Tq + 15) / 16, nkp = (Tk + 15) / 16;  // 16-key blocks
+  for (int job = warp; job < H * nqt; job += kWarps) {
+    const int h = job / nqt, r0 = job % nqt * 16;
+    const uint16_t* Qh = Qs + h * head;
+    const uint16_t* Kh = Ks + h * head;
+    const uint16_t* Vh = Vs + h * head;
+    float s[kMaxKeyFrags][4];
+#pragma unroll
+    for (int f = 0; f < kMaxKeyFrags; ++f)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[f][i] = 0.0f;
+    for (int kc = 0; kc < hd16; kc += 16) {
+      uint32_t a[4];
+      ldsm_x4(a, Qh + (r0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * pitch + kc +
+                     8 * (lane >> 4));
+#pragma unroll
+      for (int fp = 0; fp < kMaxKeyFrags / 2; ++fp) {
+        if (fp >= nkp) break;  // warp-uniform
+        // matrices: keys 0-7 dims 0-7, keys 0-7 dims 8-15, keys 8-15 dims
+        // 0-7, keys 8-15 dims 8-15 of the block
+        uint32_t b[4];
+        ldsm_x4(b, Kh + (16 * fp + (lane & 7) + 8 * (lane >> 4)) * pitch + kc +
+                       8 * ((lane >> 3) & 1));
+        hmma4(s[2 * fp][0], s[2 * fp][1], s[2 * fp][2], s[2 * fp][3], a, b[0], b[1]);
+        hmma4(s[2 * fp + 1][0], s[2 * fp + 1][1], s[2 * fp + 1][2], s[2 * fp + 1][3],
+              a, b[2], b[3]);
+      }
+    }
+    // rows r0 + g and r0 + g + 8; the scale multiplies the f32 sum, as in JAX
+    const int i0 = r0 + g, i1 = i0 + 8;
+    const float f0 = i0 < Tq ? fm[i0] : 0.0f, f1 = i1 < Tq ? fm[i1] : 0.0f;
+    float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+    for (int f = 0; f < kMaxKeyFrags; ++f) {
+      if (f >= 2 * nkp) break;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int j = 8 * f + 2 * t + c;
+        if (j < Tk) {
+          const float tj = tm[j];
+          s[f][c] = s[f][c] * scale + (1.0f - f0 * tj) * kMask;
+          s[f][2 + c] = s[f][2 + c] * scale + (1.0f - f1 * tj) * kMask;
+        } else {  // padding: out of the softmax
+          s[f][c] = -INFINITY;
+          s[f][2 + c] = -INFINITY;
+        }
+        m0 = fmaxf(m0, s[f][c]);
+        m1 = fmaxf(m1, s[f][2 + c]);
+      }
+    }
+    for (int o = 1; o < 4; o <<= 1) {
+      m0 = fmaxf(m0, __shfl_xor_sync(kFull, m0, o));
+      m1 = fmaxf(m1, __shfl_xor_sync(kFull, m1, o));
+    }
+    float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+    for (int f = 0; f < kMaxKeyFrags; ++f) {
+      if (f >= 2 * nkp) break;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        s[f][c] = expf(s[f][c] - m0);
+        s[f][2 + c] = expf(s[f][2 + c] - m1);
+        sum0 += s[f][c];
+        sum1 += s[f][2 + c];
+      }
+    }
+    for (int o = 1; o < 4; o <<= 1) {
+      sum0 += __shfl_xor_sync(kFull, sum0, o);
+      sum1 += __shfl_xor_sync(kFull, sum1, o);
+    }
+#pragma unroll
+    for (int f = 0; f < kMaxKeyFrags; ++f) {
+      if (f >= 2 * nkp) break;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        s[f][c] = s[f][c] / sum0;
+        s[f][2 + c] = s[f][2 + c] / sum1;
+      }
+    }
+    for (int dc = 0; dc < hd16; dc += 16) {
+      float o[2][4] = {};
+#pragma unroll
+      for (int kb = 0; kb < kMaxKeyFrags / 2; ++kb) {
+        if (kb >= nkp) break;
+        const uint32_t a[4] = {bf16x2(s[2 * kb][0], s[2 * kb][1]),
+                               bf16x2(s[2 * kb][2], s[2 * kb][3]),
+                               bf16x2(s[2 * kb + 1][0], s[2 * kb + 1][1]),
+                               bf16x2(s[2 * kb + 1][2], s[2 * kb + 1][3])};
+        // transposed: keys 0-7 dims 0-7, keys 8-15 dims 0-7, keys 0-7 dims
+        // 8-15, keys 8-15 dims 8-15 of the block
+        uint32_t b[4];
+        ldsm_x4_t(b, Vh + (16 * kb + (lane & 7) + 8 * ((lane >> 3) & 1)) * pitch +
+                         dc + 8 * (lane >> 4));
+        hmma4(o[0][0], o[0][1], o[0][2], o[0][3], a, b[0], b[1]);
+        hmma4(o[1][0], o[1][1], o[1][2], o[1][3], a, b[2], b[3]);
+      }
+#pragma unroll
+      for (int f = 0; f < 2; ++f)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int row = r0 + g + 8 * hh, col = dc + 8 * f + 2 * t + c;
+            if (row < Tq && col < hd) out[row * D + h * hd + col] = o[f][2 * hh + c];
+          }
+    }
+  }
+  __syncthreads();  // the images are free
+}
+
+template <bool kBf16>
+__device__ __forceinline__ void attention(const float* q, const float* k,
+                                          const float* v, const float* fm,
+                                          const float* tm, int Tq, int Tk,
+                                          const Ctx& x, float scale, float* out) {
+  if constexpr (kBf16)
+    attention_bf16(q, k, v, fm, tm, Tq, Tk, x, scale, out);
+  else
+    attention_f64(q, k, v, fm, tm, Tq, Tk, x, scale, out);
 }
 
 struct Scratch {
@@ -894,10 +1587,11 @@ __device__ __noinline__ void dual_attn(const float* from, const float* to, const
     return [=](int m, int n, float v, float) { y[m * D + n] = v; };
   };
   dense<kBf16>(out, D2, Tq, D, D, w.query, x, store(qp));
-  dense<kBf16>(out, D2, Tq, D, D, w.f_key, x, store(fk));
-  dense<kBf16>(out, D2, Tq, D, D, w.f_value, x, store(fv));
+  // on the bf16 path f_key, f_value and t_value read the A image in place
+  dense<kBf16>(out, D2, Tq, D, D, w.f_key, x, store(fk), nullptr, 0, true);
+  dense<kBf16>(out, D2, Tq, D, D, w.f_value, x, store(fv), nullptr, 0, true);
   dense<kBf16>(ton, D2, Tk, D, D, w.t_key, x, store(tk));
-  dense<kBf16>(ton, D2, Tk, D, D, w.t_value, x, store(tv));
+  dense<kBf16>(ton, D2, Tk, D, D, w.t_value, x, store(tv), nullptr, 0, true);
   __syncthreads();
   attention<kBf16>(qp, fk, fv, fm, fm, Tq, Tq, x, scale, sout);
   attention<kBf16>(qp, tk, tv, fm, tm, Tq, Tk, x, scale, xout);
@@ -929,8 +1623,9 @@ __device__ __noinline__ void dual_attn(const float* from, const float* to, const
   // [out | outputs] @ [d1; d2] (packed next to each other), summed in f64
   // and rounded once, where the plain version rounds both products
   float *scores = tv, *values = sout;
-  dense<kBf16>(cat, D2, Tq, D2, D, Dense{w.b1d1, w.b1b}, x, store(scores));
-  dense<kBf16>(cat, D2, Tq, D2, D, Dense{w.b2d1, w.b2b}, x, store(values));
+  dense<kBf16>(cat, D2, Tq, D2, D, Dense{w.b1d1, w.b1b}, x, store(scores), nullptr, D);
+  dense<kBf16>(cat, D2, Tq, D2, D, Dense{w.b2d1, w.b2b}, x, store(values), nullptr, D,
+               true);
   __syncthreads();
   // gate: sigmoid(scores*m + -1e30*(1-m)) * values, exactly 0 on padded rows
   float* gated = qp;
@@ -1034,8 +1729,19 @@ __device__ __noinline__ void cq_attention(const float* x1, const float* x2, cons
                        att[i * D4 + 3 * D + c] = x1[i * D + c] * acc;
                      });
   __syncthreads();
-  dense<kBf16>(att, D4, T1, D4, D, w.dense, x,
-        [=](int m, int n, float v, float) { out[m * D + n] = v; });
+  if constexpr (kBf16) {
+    // two products of K = 2D (the ring holds at most 256 values of k), the
+    // second adding the first's sums: the companion images the kernel's
+    // two halves apart
+    dense<kBf16>(att, D4, T1, 2 * D, D, w.dense, x,
+                 [=](int m, int n, float v, float) { out[m * D + n] = v; });
+    __syncthreads();
+    dense<kBf16>(att + 2 * D, D4, T1, 2 * D, D, w.dense, x,
+                 [=](int m, int n, float v, float r) { out[m * D + n] = r + v; }, out);
+  } else {
+    dense<kBf16>(att, D4, T1, D4, D, w.dense, x,
+          [=](int m, int n, float v, float) { out[m * D + n] = v; });
+  }
   __syncthreads();
 }
 
@@ -1067,8 +1773,8 @@ __device__ __noinline__ void feature_encoder(const float* in, const float* vm, c
     return [=](int m, int n, float val, float) { out[m * D + n] = val; };
   };
   dense<kBf16>(o, D, T, D, D, w.q, x, store(q));
-  dense<kBf16>(o, D, T, D, D, w.k, x, store(k));
-  dense<kBf16>(o, D, T, D, D, w.v, x, store(v));
+  dense<kBf16>(o, D, T, D, D, w.k, x, store(k), nullptr, 0, true);
+  dense<kBf16>(o, D, T, D, D, w.v, x, store(v), nullptr, 0, true);
   __syncthreads();
   attention<kBf16>(q, k, v, vm, vm, T, T, x, scale, att);
   __syncthreads();
@@ -1201,9 +1907,13 @@ __device__ __noinline__ void fuse(const Ctx& x, Cursor& c, const float* vm,
   const Dense match = take_dense(c, D, kLabels);
   const float* label_emb = c.take(kLabels * D);
   float* mlog = vec(x, 3);
-  // an mm in the JAX kernel: it rounds on the bf16 path too
-  narrow_dense<kBf16>(buf(x, xv), T, D, kLabels, match.w,
-                      [=](int m, int n, float v) { mlog[m * kLabels + n] = v + match.b[n]; });
+  // an mm in the JAX kernel: it rounds on the bf16 path too (the weight
+  // from the companion)
+  auto head = [=](int m, int n, float v) { mlog[m * kLabels + n] = v + match.b[n]; };
+  if constexpr (kBf16)
+    narrow_dense<true>(buf(x, xv), T, D, kLabels, x.wbf + x.match_bf, head);
+  else
+    narrow_dense<false>(buf(x, xv), T, D, kLabels, match.w, head);
   __syncthreads();
   mlog = vec(x, 3);
   for (int t = threadIdx.x; t < T; t += blockDim.x) {
@@ -1234,8 +1944,11 @@ __device__ __noinline__ void fuse(const Ctx& x, Cursor& c, const float* vm,
       float soft = 0.0f;
       for (int k = 0; k < kLabels; ++k) {
         // mm(mscores, label_emb) in the JAX kernel: it rounds on the bf16 path
-        const float p = mlog[t * kLabels + k], l = label_emb[k * D + c2];
-        soft += kBf16 ? round_bf16(p) * round_bf16(l) : p * l;
+        const float p = mlog[t * kLabels + k];
+        if constexpr (kBf16)
+          soft += round_bf16(p) * bf16f(x.wbf[x.label_bf + k * D + c2]);
+        else
+          soft += p * label_emb[k * D + c2];
       }
       outp[e] = (fz[e] + soft) * vm[t];
     }
@@ -1300,6 +2013,9 @@ struct Params {
   float* match_scores;    // (B, T, 4)
   float* workspace;
   long ws_floats;  // per sample
+  const uint16_t* wbf;  // the bf16 path: the companion, its ring schedule
+  const int* sched;
+  int nsched, match_bf, label_bf;
   int T, W, D, H, attn_layer, P;
   float tau;
   int use_gumbel;
@@ -1315,20 +2031,45 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float scale = 1.0f / sqrtf(static_cast<float>(D / p.H));
 
   extern __shared__ __align__(16) float smem[];
-  const SmemLayout lay(T, W, D, p.H);
   Ctx x;
   x.T = T;
   x.W = W;
   x.D = D;
   x.H = p.H;
   x.Lm = Lm;
-  x.stage = smem;
-  x.stage_floats = lay.a_floats + lay.b_floats;
-  x.a_floats = lay.a_floats;
-  x.S = smem + lay.region;
-  x.lds = lay.score_ld;
-  x.heads = lay.heads;
-  float* vm = x.S + static_cast<long>(lay.heads) * lay.head_floats;  // (T)
+  float* vm;  // (T) video mask
+  if constexpr (kBf16) {
+    const Bf16Layout lay(T, W, D, p.H);
+    char* base = reinterpret_cast<char*>(smem);
+    x.img = reinterpret_cast<uint16_t*>(base);
+    x.ring = reinterpret_cast<uint16_t*>(base + lay.ring);
+    x.full = reinterpret_cast<uint64_t*>(base + lay.bars);
+    x.wbf = p.wbf;
+    x.sched = p.sched;
+    x.nsched = p.nsched;
+    x.qkv_rows = lay.qkv_rows;
+    x.match_bf = p.match_bf;
+    x.label_bf = p.label_bf;
+    x.slab = 0;
+    vm = reinterpret_cast<float*>(base + lay.masks);
+    if (threadIdx.x == 0) {  // the ring's barriers and first slabs
+      for (int i = 0; i < kRing; ++i) mbar_init(x.full + i, 1);
+      fence_mbar_init();
+      for (int s = 0; s < kRing && s < x.nsched; ++s)
+        bulk_copy(x.ring + s * kSlotValues,
+                  reinterpret_cast<const char*>(x.wbf) + x.sched[2 * s],
+                  x.sched[2 * s + 1], x.full + s);
+    }
+  } else {
+    const SmemLayout lay(T, W, D, p.H);
+    x.stage = smem;
+    x.stage_floats = lay.a_floats + lay.b_floats;
+    x.a_floats = lay.a_floats;
+    x.S = smem + lay.region;
+    x.lds = lay.score_ld;
+    x.heads = lay.heads;
+    vm = x.S + static_cast<long>(lay.heads) * lay.head_floats;
+  }
   float* qm = vm + T;                  // (W) query mask
   for (int t = threadIdx.x; t < T; t += blockDim.x)
     vm[t] = static_cast<float>(p.v_mask[static_cast<long>(b) * T + t]);
@@ -1387,6 +2128,14 @@ extern "C" long long fused_forward_smem_bytes(int T, int W, int D, int H) {
   return SmemLayout(T, W, D, H).floats() * static_cast<long long>(sizeof(float));
 }
 
+extern "C" long long fused_forward_bf16_smem_bytes(int T, int W, int D, int H) {
+  return Bf16Layout(T, W, D, H).bytes;
+}
+
+extern "C" int fused_forward_bf16_ring() { return kRing; }
+
+extern "C" int fused_forward_bf16_slab_k() { return kKSlab; }
+
 extern "C" int fused_forward_heads_per_group(int T, int W, int D, int H) {
   return SmemLayout(T, W, D, H).heads;
 }
@@ -1397,18 +2146,18 @@ extern "C" int fused_forward_max_len() { return kMaxLen; }
 
 extern "C" int fused_forward_max_dim() { return kMaxDim; }
 
-extern "C" int fused_forward_f32(const void* weights, const void* vf,
-                                 const void* qf, const void* v_mask,
-                                 const void* q_mask, void* start_logits,
-                                 void* end_logits, void* match_scores,
-                                 void* workspace, int B, int T, int W, int D,
-                                 int H, int attn_layer, int P, float tau,
-                                 int use_gumbel, int mxu_bf16, void* stream) {
+namespace {
+
+// The launch of either path: returns the first CUDA error.
+int run(Params& p, const void* weights, const void* vf, const void* qf,
+        const void* v_mask, const void* q_mask, void* start_logits,
+        void* end_logits, void* match_scores, void* workspace, int B, int T,
+        int W, int D, int H, int attn_layer, int P, float tau, int use_gumbel,
+        bool bf16, void* stream) {
   if (B <= 0) return 0;
   if (T < 1 || W < 1 || T > kMaxLen || W > kMaxLen || D > kMaxDim ||
       D % 4 != 0 || H < 1 || D % H != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p;
   p.weights = static_cast<const float*>(weights);
   p.vf = static_cast<const float*>(vf);
   p.qf = static_cast<const float*>(qf);
@@ -1427,7 +2176,51 @@ extern "C" int fused_forward_f32(const void* weights, const void* vf,
   p.P = P;
   p.tau = tau;
   p.use_gumbel = use_gumbel;
-  const int smem = static_cast<int>(fused_forward_smem_bytes(T, W, D, H));
-  return mxu_bf16 ? launch<true>(p, B, smem, static_cast<cudaStream_t>(stream))
-                  : launch<false>(p, B, smem, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch<true>(p, B, static_cast<int>(fused_forward_bf16_smem_bytes(T, W, D, H)),
+                        s);
+  return launch<false>(p, B, static_cast<int>(fused_forward_smem_bytes(T, W, D, H)), s);
+}
+
+}  // namespace
+
+// The default path: f32 operands, f64 sums.
+extern "C" int fused_forward_f32(const void* weights, const void* vf,
+                                 const void* qf, const void* v_mask,
+                                 const void* q_mask, void* start_logits,
+                                 void* end_logits, void* match_scores,
+                                 void* workspace, int B, int T, int W, int D,
+                                 int H, int attn_layer, int P, float tau,
+                                 int use_gumbel, void* stream) {
+  Params p = {};
+  return run(p, weights, vf, qf, v_mask, q_mask, start_logits, end_logits,
+             match_scores, workspace, B, T, W, D, H, attn_layer, P, tau,
+             use_gumbel, false, stream);
+}
+
+// The bf16 path: `wbf16` the bf16 companion of the packed weights (16-byte
+// aligned), `schedule` (device, int32) its ring slabs in the order of the
+// products, (byte offset, bytes) each; match_bf and label_bf the values'
+// offsets of the matching head's kernel and label_emb in the companion.
+extern "C" int fused_forward_bf16(const void* weights, const void* wbf16,
+                                  const void* schedule, int nsched, int match_bf,
+                                  int label_bf, const void* vf, const void* qf,
+                                  const void* v_mask, const void* q_mask,
+                                  void* start_logits, void* end_logits,
+                                  void* match_scores, void* workspace, int B,
+                                  int T, int W, int D, int H, int attn_layer,
+                                  int P, float tau, int use_gumbel, void* stream) {
+  if (wbf16 == nullptr || schedule == nullptr || nsched < 1 ||
+      (reinterpret_cast<uintptr_t>(wbf16) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p = {};
+  p.wbf = static_cast<const uint16_t*>(wbf16);
+  p.sched = static_cast<const int*>(schedule);
+  p.nsched = nsched;
+  p.match_bf = match_bf;
+  p.label_bf = label_bf;
+  return run(p, weights, vf, qf, v_mask, q_mask, start_logits, end_logits,
+             match_scores, workspace, B, T, W, D, H, attn_layer, P, tau,
+             use_gumbel, true, stream);
 }

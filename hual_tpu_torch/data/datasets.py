@@ -61,10 +61,12 @@ class Processor:
 
 
 def dataset_gen(data, vfeat_lens, word_dict, char_dict,
-                max_pos_len: int) -> list[dict]:
+                max_pos_len: int, scope: str | None = None) -> list[dict]:
     """Map words/chars to ids and times to unit indices.  Words are cut at
     ``max_pos_len``: the reference passes max_vlen here, not max_tlen, and
-    the quirk is kept on purpose."""
+    the quirk is kept on purpose.  ``scope`` (the split's name) is read by
+    neither this nor ``hual_tpu``'s version; it keeps their signatures
+    alike."""
     dataset = []
     for record in data:
         vid = record["vid"]
@@ -220,10 +222,12 @@ def gen_or_load_dataset(config: Config, data_dir: str | None = None,
         data_list, config.paths.glove_path, word_dim=config.model.word_dim)
 
     max_vlen = config.model.max_vlen
-    train_set = dataset_gen(train_data, vfeat_lens, word_dict, char_dict, max_vlen)
+    train_set = dataset_gen(train_data, vfeat_lens, word_dict, char_dict, max_vlen,
+                            "train")
     val_set = None if val_data is None else dataset_gen(
-        val_data, vfeat_lens, word_dict, char_dict, max_vlen)
-    test_set = dataset_gen(test_data, vfeat_lens, word_dict, char_dict, max_vlen)
+        val_data, vfeat_lens, word_dict, char_dict, max_vlen, "val")
+    test_set = dataset_gen(test_data, vfeat_lens, word_dict, char_dict, max_vlen,
+                           "test")
 
     max_wlen, max_clen = _static_shape_bounds([train_set, val_set, test_set])
     dataset = {

@@ -9,7 +9,11 @@ conditioned predictor.  Its inputs are the projected and normalised streams
 ``start_logits (B,T)``, ``end_logits (B,T)`` and ``match_scores (B,T,4)``.
 
 * :func:`pack_weights` packs K2's 152 leaves into one contiguous f32 buffer,
-  in the order ``csrc/fused_forward.cu`` walks it (:func:`pack_order`).
+  in the order ``csrc/fused_forward.cu`` walks it (:func:`pack_order`), and
+  the leaves that the bf16 path's products round into a bf16 companion
+  buffer, each in the shared-memory layout its product reads
+  (``_bf16_parts``), with the kernel's schedule of their slabs
+  (:func:`bf16_schedule`).
 * :func:`forward_math` is the plain PyTorch version of K2's function, with
   ordinary per-sample masked attention; it reads every weight from the
   packed buffer, so it checks the packing too.  With ``mxu_bf16`` it is
@@ -101,6 +105,67 @@ def pack_order(attn_layer: int) -> list[str]:
     return keys
 
 
+# The bf16 companion.  The leaves the JAX kernel's ``mm`` rounds on its
+# bf16 path are the kernels of the D-wide dense layers (the pointwise
+# filters, the dual attentions', the CQ attentions', cq_cat's, the feature
+# encoder's and the predictor's hidden layers: the B operands of the
+# kernel's products) and the matching head's kernel and ``label_emb`` (CUDA
+# cores).  The (D, 1) denses are elementwise sums there, not rounded.
+SLAB_K = 64          # k depth of one slab of a product's weight (kKSlab)
+_ROW_MAJOR_BF16 = ("matching_head/dense/kernel", "label_emb")
+# the CQ attentions' (4D, D) denses run as two products of K = 2D on the
+# bf16 path (its ring holds 256 values of k): each half imaged apart
+BF16_HALVES = ("q2v_attn/dense/kernel", "v2q_attn/dense/kernel")
+_NOT_ROUNDED = ("predictor/start_dense/kernel", "predictor/end_dense/kernel")
+
+
+def bf16_leaves(attn_layer: int) -> list[str]:
+    """The leaves of the bf16 companion, in pack order."""
+    return [k for k in pack_order(attn_layer)
+            if (k.endswith("/kernel") or k.endswith("/pointwise_filter")
+                or k == "label_emb") and k not in _NOT_ROUNDED]
+
+
+def _up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _images(key: str, w: torch.Tensor) -> list[torch.Tensor]:
+    """The leaf's parts as its products read them: (K, N) once, or its two
+    halves along K (:data:`BF16_HALVES`)."""
+    if key in BF16_HALVES:
+        half = w.shape[0] // 2
+        return [w[:half], w[half:]]
+    return [w]
+
+
+def bf16_schedule(attn_layer: int) -> list[str]:
+    """The ring leaves in the order of the kernel's products: the conv block
+    on each stream, each dual-attention layer in both directions (its ten
+    denses, the bilinears' two halves, dense_1, dense_2), the two CQ
+    attentions' denses, cq_cat, the feature encoder twice (its pointwise
+    filters, q, k, v, dense), the two hidden layers."""
+    conv = [f"conv_block/depthwise_conv_layers_{i}/pointwise_filter"
+            for i in range(4)]
+    order = conv + conv
+    for li in range(attn_layer):
+        m = f"d_attn_{li}/dual_multihead_attention"
+        one = ([f"{m}/{name}/kernel" for name in _DUAL_DENSES]
+               + [f"{m}/{bl}/{d}/kernel" for bl in ("bilinear_1", "bilinear_2")
+                  for d in ("dense_1", "dense_2")]
+               + [f"d_attn_{li}/dense_1/kernel", f"d_attn_{li}/dense_2/kernel"])
+        order += one + one
+    order += ["q2v_attn/dense/kernel", "v2q_attn/dense/kernel",
+              "cq_cat/dense/kernel"]
+    fe = "predictor/feature_encoder"
+    one = ([f"{fe}/conv_block/depthwise_conv_layers_{i}/pointwise_filter"
+            for i in range(4)]
+           + [f"{fe}/top_self_attention/{n}/kernel" for n in ("query", "key", "value")]
+           + [f"{fe}/dense/kernel"])
+    return order + one + one + ["predictor/start_hidden/kernel",
+                                "predictor/end_hidden/kernel"]
+
+
 def _kernel_layout(jax_shaped: torch.Tensor) -> torch.Tensor:
     """A leaf in the JAX package's shape with its unit axes dropped."""
     shape = [s for s in jax_shaped.shape if s != 1] or [1]
@@ -110,11 +175,17 @@ def _kernel_layout(jax_shaped: torch.Tensor) -> torch.Tensor:
 @dataclass
 class PackedWeights:
     """K2's weights: one contiguous f32 buffer on the model's device and a
-    static layout, JAX key (without ``params/``) -> (offset, shape)."""
+    static layout, JAX key (without ``params/``) -> (offset, shape); the
+    bf16 path's companion (``bf16``, its ``bf16_layout``, key -> (offset,
+    shape) in values) and the ring's ``schedule``: int32 (slabs, 2) of
+    (byte offset, bytes) in the order the kernel's products read them."""
 
     buffer: torch.Tensor
     layout: dict[str, tuple[int, tuple[int, ...]]]
     attn_layer: int
+    bf16: torch.Tensor | None = None
+    bf16_layout: dict[str, tuple[int, tuple[int, ...]]] | None = None
+    schedule: torch.Tensor | None = None
 
     def __call__(self, key: str) -> torch.Tensor:
         offset, shape = self.layout[key]
@@ -125,13 +196,72 @@ class PackedWeights:
         return self.layout["pos_emb/position_embeddings"][1][0]
 
 
-def pack_weights(model, out: PackedWeights | None = None) -> PackedWeights:
-    """Pack ``model``'s K2 leaves into one buffer, once per sweep.
+def _bf16_parts(leaves: dict[str, torch.Tensor], attn_layer: int
+                ) -> tuple[list[torch.Tensor], dict]:
+    """The companion's parts and layout.  A weight leaf w (K, N) becomes the
+    bf16 shared-memory image its product reads: w^T (N rows of K) padded
+    with zeros to up8(N) rows and up16(K) columns, cut into slabs of
+    :data:`SLAB_K` columns (the last one narrower), each slab K-major in
+    core matrices of 8 rows x 8 values, core matrix (n/8, k/8) of a slab kw
+    wide at ``((n/8) * (kw/8) + k/8) * 64``, row n%8 of it 8 values on; the
+    kernel copies each slab whole into a ring slot.  The leaves of
+    :data:`BF16_HALVES` are imaged as their two halves along K, one after
+    the other.  Images of one shape are made together (the D x D kernels,
+    then 2D x D); the matching head's kernel and ``label_emb`` follow
+    row-major; each part is 16-byte aligned."""
+    keys = [k for k in bf16_leaves(attn_layer) if k not in _ROW_MAJOR_BF16]
+    # the images by shape: (key, part) in key order
+    shapes: dict[tuple, list[tuple[str, torch.Tensor]]] = {}
+    for k in keys:
+        for part in _images(k, leaves[k]):
+            shapes.setdefault(tuple(part.shape), []).append((k, part))
+    parts, layout, offset = [], {}, 0
+    for (K, N), group in shapes.items():
+        size = _up(N, 8) * _up(K, 16)
+        # one image per part, all of the group in one pass
+        stacked = torch.stack([part.float() for _, part in group])
+        t = torch.zeros((len(group), _up(N, 8), _up(K, 16)), dtype=torch.bfloat16,
+                        device=stacked.device)
+        t[:, :N, :K] = stacked.transpose(1, 2)
+        Np, Kp = t.shape[1:]
+        slabs = [t[:, :, k0:k0 + min(SLAB_K, Kp - k0)]
+                 .reshape(len(group), Np // 8, 8, -1, 8).permute(0, 1, 3, 2, 4)
+                 .reshape(len(group), -1) for k0 in range(0, Kp, SLAB_K)]
+        parts.append(torch.cat(slabs, dim=1).reshape(-1))
+        for k, _ in group:
+            if k not in layout:   # a leaf's offset is its first part's
+                layout[k] = (offset, tuple(leaves[k].shape))
+            offset += size
+    for k in _ROW_MAJOR_BF16:
+        t = leaves[k].float().to(torch.bfloat16).reshape(-1)
+        pad = _up(t.numel(), 8) - t.numel()
+        parts.append(torch.cat([t, t.new_zeros(pad)]) if pad else t)
+        layout[k] = (offset, tuple(leaves[k].shape))
+        offset += t.numel() + pad
+    return parts, layout
 
-    With ``out`` (an earlier pack of the same model) the leaves are written
-    into ``out.buffer`` in place and ``out`` is returned: a captured CUDA
-    graph reads the buffer at the address it had at capture, so a sweep
-    that replays one refreshes the pack this way before its replays.
+
+def _bf16_schedule_tensor(layout: dict, attn_layer: int, device) -> torch.Tensor:
+    rows = []
+    for key in bf16_schedule(attn_layer):
+        offset, (K, N) = layout[key]
+        halves = 2 if key in BF16_HALVES else 1
+        Np, Kp = _up(N, 8), _up(K // halves, 16)
+        for h in range(halves):
+            for k0 in range(0, Kp, SLAB_K):
+                kw = min(SLAB_K, Kp - k0)
+                rows.append((2 * (offset + Np * (h * Kp + k0)), 2 * Np * kw))
+    return torch.tensor(rows, dtype=torch.int32, device=device)
+
+
+def pack_weights(model, out: PackedWeights | None = None) -> PackedWeights:
+    """Pack ``model``'s K2 leaves into one buffer, and the leaves the bf16
+    path rounds into its companion, once per sweep.
+
+    With ``out`` (an earlier pack of the same model) both buffers are
+    written in place and ``out`` is returned: a captured CUDA graph reads
+    them at the addresses they had at capture, so a sweep that replays one
+    refreshes the pack this way before its replays.
     """
     from hual_tpu_torch.weights import _leaves  # the port's leaf walk
 
@@ -154,12 +284,18 @@ def pack_weights(model, out: PackedWeights | None = None) -> PackedWeights:
             layout[key] = (offset, tuple(t.shape))
             offset += t.numel()
             parts.append(t.reshape(-1))
+        bf16_parts, bf16_layout = _bf16_parts(leaves, model.attn_layer)
         if out is None:
-            return PackedWeights(torch.cat(parts).contiguous(), layout,
-                                 model.attn_layer)
-        if out.layout != layout or out.buffer.device != parts[0].device:
+            device = parts[0].device
+            return PackedWeights(
+                torch.cat(parts).contiguous(), layout, model.attn_layer,
+                torch.cat(bf16_parts).contiguous(), bf16_layout,
+                _bf16_schedule_tensor(bf16_layout, model.attn_layer, device))
+        if (out.layout != layout or out.bf16_layout != bf16_layout
+                or out.buffer.device != parts[0].device):
             raise ValueError("pack_weights: out was packed for another model")
         torch.cat(parts, out=out.buffer)
+        torch.cat(bf16_parts, out=out.bf16)
     return out
 
 

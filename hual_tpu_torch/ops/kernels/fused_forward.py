@@ -6,7 +6,8 @@ of its product paths: f64 sums of f32 operands (the default) and, with
 For tensors on the CPU it runs the plain version, ``ops.fused_forward.
 forward_math``, with the same ``mxu_bf16``; for CUDA tensors it launches the
 kernel on that path or raises, and never falls back to the other path or
-the plain version.  ``fused_forward.launches`` counts the launches of the
+the plain version.  The bf16 path reads the packed weights' bf16 companion
+and the schedule of its slabs (``PackedWeights.bf16``, ``.schedule``).  ``fused_forward.launches`` counts the launches of the
 default path, ``fused_forward.launches_bf16`` those of the bf16 path.
 The kernel takes T and W up to :data:`MAX_LEN` and D up to :data:`MAX_DIM`;
 :func:`check_kernel_shape` is that limit, checked before every launch.
@@ -34,8 +35,14 @@ def _library():
     lib = build.load("fused_forward")
     lib.fused_forward_f32.argtypes = (
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.fused_forward_f32.restype = ctypes.c_int
+    lib.fused_forward_bf16.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
+        + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.fused_forward_bf16.restype = ctypes.c_int
+    lib.fused_forward_bf16_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.fused_forward_bf16_smem_bytes.restype = ctypes.c_longlong
     lib.fused_forward_weight_floats.argtypes = [ctypes.c_int] * 3
     lib.fused_forward_weight_floats.restype = ctypes.c_longlong
     lib.fused_forward_workspace_floats.argtypes = [ctypes.c_int] * 4
@@ -56,13 +63,15 @@ def workspace_floats(T: int, W: int, D: int, num_heads: int) -> int:
     return int(_library().fused_forward_workspace_floats(T, W, D, num_heads))
 
 
-def smem_bytes(T: int, W: int, D: int, num_heads: int) -> int:
-    """Dynamic shared memory of one block (one sample)."""
-    return int(_library().fused_forward_smem_bytes(T, W, D, num_heads))
+def smem_bytes(T: int, W: int, D: int, num_heads: int, mxu_bf16: bool = False) -> int:
+    """Dynamic shared memory of one block (one sample) on either path."""
+    lib = _library()
+    fn = lib.fused_forward_bf16_smem_bytes if mxu_bf16 else lib.fused_forward_smem_bytes
+    return int(fn(T, W, D, num_heads))
 
 
 def heads_per_group(T: int, W: int, D: int, num_heads: int) -> int:
-    """Heads whose scores the kernel holds in shared memory at once."""
+    """Heads whose scores the default path holds in shared memory at once."""
     return int(_library().fused_forward_heads_per_group(T, W, D, num_heads))
 
 
@@ -118,6 +127,18 @@ def _check(packed: PackedWeights, vf, qf, v_mask, q_mask, attn_layer: int,
                          f"were packed for {packed.attn_layer}")
 
 
+def _check_bf16(packed: PackedWeights, dev: torch.device) -> None:
+    """The bf16 path reads the companion and its schedule (pack_weights)."""
+    for t, name, dtype in ((packed.bf16, "bf16 companion", torch.bfloat16),
+                           (packed.schedule, "ring schedule", torch.int32)):
+        if t is None:
+            raise ValueError(f"fused_forward: the {name} is missing: pack the "
+                             "weights with pack_weights")
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"fused_forward: the {name} must be a contiguous "
+                             f"{dtype} tensor on {dev}")
+
+
 def fused_forward(packed: PackedWeights, vf: torch.Tensor, qf: torch.Tensor,
                   v_mask: torch.Tensor, q_mask: torch.Tensor, *, attn_layer: int,
                   num_heads: int, tau: float, use_gumbel: bool,
@@ -142,6 +163,8 @@ def fused_forward(packed: PackedWeights, vf: torch.Tensor, qf: torch.Tensor,
         raise ValueError(f"fused_forward: {packed.buffer.numel()} packed "
                          f"weights, the kernel reads {expected}")
     dev = vf.device
+    if mxu_bf16:
+        _check_bf16(packed, dev)
     start = torch.empty((B, T), dtype=torch.float32, device=dev)
     end = torch.empty((B, T), dtype=torch.float32, device=dev)
     scores = torch.empty((B, T, 4), dtype=torch.float32, device=dev)
@@ -149,14 +172,20 @@ def fused_forward(packed: PackedWeights, vf: torch.Tensor, qf: torch.Tensor,
         return start, end, scores
     workspace = torch.empty(B * workspace_floats(T, W, D, num_heads),
                             dtype=torch.float32, device=dev)
+    args = (vf.data_ptr(), qf.data_ptr(), v_mask.data_ptr(), q_mask.data_ptr(),
+            start.data_ptr(), end.data_ptr(), scores.data_ptr(),
+            workspace.data_ptr(), B, T, W, D, num_heads, attn_layer,
+            packed.max_pos, float(tau), int(bool(use_gumbel)))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.fused_forward_f32(
-            packed.buffer.data_ptr(), vf.data_ptr(), qf.data_ptr(),
-            v_mask.data_ptr(), q_mask.data_ptr(), start.data_ptr(),
-            end.data_ptr(), scores.data_ptr(), workspace.data_ptr(),
-            B, T, W, D, num_heads, attn_layer, packed.max_pos, float(tau),
-            int(bool(use_gumbel)), int(bool(mxu_bf16)), stream)
+        if mxu_bf16:
+            rc = lib.fused_forward_bf16(
+                packed.buffer.data_ptr(), packed.bf16.data_ptr(),
+                packed.schedule.data_ptr(), packed.schedule.shape[0],
+                packed.bf16_layout["matching_head/dense/kernel"][0],
+                packed.bf16_layout["label_emb"][0], *args, stream)
+        else:
+            rc = lib.fused_forward_f32(packed.buffer.data_ptr(), *args, stream)
     if rc != 0:
         raise RuntimeError(f"fused_forward kernel launch failed: CUDA error {rc}")
     if mxu_bf16:

@@ -2,7 +2,9 @@
 
 * :class:`MetricsWriter` appends one JSON object per event to a .jsonl file.
 * :func:`trace` names a block as a ``torch.profiler.record_function`` range,
-  so a torch.profiler trace shows the block and the kernels under it.
+  so a torch.profiler trace shows the block and the kernels under it; with
+  a profile directory (the argument or ``$HUAL_PROFILE_DIR``) it also
+  records a torch.profiler trace of the block into that directory.
 * :class:`StepTimer` tracks wall time and pairs/s with warmup steps skipped.
 """
 
@@ -33,11 +35,26 @@ class MetricsWriter:
 
 
 @contextlib.contextmanager
-def trace(name: str):
+def trace(name: str, profile_dir: Optional[str] = None):
     """A named range for torch.profiler; costs a few µs of host time when
-    no profiler is recording."""
-    with torch.profiler.record_function(name):
-        yield
+    no profiler is recording.  With ``profile_dir``, or ``$HUAL_PROFILE_DIR``
+    set, the block runs under a torch.profiler recording (CPU activities,
+    and CUDA activities where a card is present) whose Chrome trace is
+    written to ``<profile_dir>/<name>-<pid>-<ns>.pt.trace.json``."""
+    profile_dir = profile_dir or os.environ.get("HUAL_PROFILE_DIR")
+    if not profile_dir:
+        with torch.profiler.record_function(name):
+            yield
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        with torch.profiler.record_function(name):
+            yield
+    prof.export_chrome_trace(os.path.join(
+        profile_dir, f"{name}-{os.getpid()}-{time.time_ns()}.pt.trace.json"))
 
 
 class StepTimer:

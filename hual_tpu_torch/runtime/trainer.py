@@ -101,10 +101,9 @@ class TrainState:
 
 class Trainer:
     def __init__(self, config: Config, dataset: dict,
-                 feature_store: FeatureStore, logger=None,
-                 device_features: Optional[_DeviceTable] = None,
-                 device: str | torch.device = "cuda",
-                 mesh: Optional[Mesh] = None):
+                 feature_store: FeatureStore, mesh: Optional[Mesh] = None,
+                 logger=None, device_features: Optional[_DeviceTable] = None,
+                 device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         tcfg = config.train
         if self.device.type == "cuda":

@@ -20,10 +20,10 @@ def load_json(path: str) -> Any:
         return json.load(f)
 
 
-def save_json(data: Any, path: str) -> None:
+def save_json(data: Any, path: str, pretty: bool = False) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w", encoding="utf-8") as f:
-        json.dump(data, f)
+        json.dump(data, f, indent=4 if pretty else None)
 
 
 def load_lines(path: str) -> list[str]:

@@ -68,7 +68,7 @@ def test_dataset_gen_active_matches_jax(seed, max_pos_len):
     got = datasets.dataset_gen_active(recs, lens, wd, cd, max_pos_len, "train")
     want = jax_datasets.dataset_gen_active(recs, lens, wd, cd, max_pos_len, "train")
     assert got == want and len(got) == len(lens)     # v11 has no features
-    plain = datasets.dataset_gen(recs, lens, wd, cd, max_pos_len)
+    plain = datasets.dataset_gen(recs, lens, wd, cd, max_pos_len, "train")
     assert plain == jax_datasets.dataset_gen(recs, lens, wd, cd, max_pos_len, "train")
 
 

@@ -3,10 +3,12 @@
 on one NVIDIA GPU.  Each mode builds a copy of the kernel's source with nvcc
 into ``build/k2_probe/`` (the kernel in the package is left as it is):
 
-* ``timeline``: a copy with a ``clock64()`` stamp after every block-level
-  barrier of the source (2- or 4-space indented ``__syncthreads();``); runs
-  (1,64,13) and (96,64,13) at Charades width and prints, per barrier line,
-  the cycles of block 0 spent since the previous stamp, largest first.
+* ``timeline [--mxu-bf16]``: a copy with a ``clock64()`` stamp after every
+  block-level barrier of the source (2- or 4-space indented
+  ``__syncthreads();``); runs (1,64,13) and (96,64,13) at Charades width on
+  the default path, or on the bf16 path with ``--mxu-bf16``, and prints,
+  per barrier line, the cycles of block 0 spent since the previous stamp,
+  largest first.
 * ``variants``: copies with named text substitutions (``VARIANTS``), built in
   parallel; prints ptxas's registers and spills and the CUDA-event time of a
   call at (1,64,13), (96,64,13) and (32,100,30), and the largest error
@@ -20,8 +22,8 @@ into ``build/k2_probe/`` (the kernel in the package is left as it is):
   and 8 warps.
 
 Run from the repository root: ``python3 tools/torch_k2_probe.py timeline``
-(or ``variants``, ``dense``, ``dmma``).  Needs the card and nvcc; prints
-text.
+(or ``timeline --mxu-bf16``, ``variants``, ``dense``, ``dmma``).  Needs the
+card and nvcc; prints text.
 """
 
 from __future__ import annotations
@@ -76,29 +78,37 @@ def model_packed(T: int) -> PackedWeights:
 
 def bind(so: str):
     lib = ctypes.CDLL(so)
-    lib.fused_forward_f32.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-                                      + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                         ctypes.c_void_p])
+    tail = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    lib.fused_forward_f32.argtypes = [ctypes.c_void_p] * 9 + tail
+    lib.fused_forward_bf16.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                                       + [ctypes.c_void_p] * 8 + tail)
     lib.fused_forward_workspace_floats.restype = ctypes.c_longlong
     lib.fused_forward_workspace_floats.argtypes = [ctypes.c_int] * 4
     return lib
 
 
-def call(lib, packed, args, B, T, W):
+def call(lib, packed, args, B, T, W, mxu_bf16=False):
     outs = [torch.empty(B, T, device="cuda"), torch.empty(B, T, device="cuda"),
             torch.empty(B, T, 4, device="cuda")]
     ws = torch.empty(B * lib.fused_forward_workspace_floats(T, W, 128, 8), device="cuda")
+    rest = ([a.data_ptr() for a in args] + [o.data_ptr() for o in outs]
+            + [ws.data_ptr(), B, T, W, 128, 8, 2, packed.max_pos, 0.3, 0])
 
     def run():
-        rc = lib.fused_forward_f32(packed.buffer.data_ptr(), *[a.data_ptr() for a in args],
-                                   *[o.data_ptr() for o in outs], ws.data_ptr(), B, T, W,
-                                   128, 8, 2, packed.max_pos, 0.3, 0, 0,
-                                   torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if mxu_bf16:
+            rc = lib.fused_forward_bf16(
+                packed.buffer.data_ptr(), packed.bf16.data_ptr(),
+                packed.schedule.data_ptr(), packed.schedule.shape[0],
+                packed.bf16_layout["matching_head/dense/kernel"][0],
+                packed.bf16_layout["label_emb"][0], *rest, stream)
+        else:
+            rc = lib.fused_forward_f32(packed.buffer.data_ptr(), *rest, stream)
         assert rc == 0, f"CUDA error {rc}"
     return run, outs
 
 
-def timeline() -> None:
+def timeline(mxu_bf16: bool = False) -> None:
     src = open(SRC).read()
     out = []
     for i, line in enumerate(src.splitlines()):
@@ -129,7 +139,7 @@ extern "C" int timed_dump(long long* t, int* l) {
     packed, lines = model_packed(64), src.splitlines()
     for B in (1, 96):
         args = chip_smoke.k2_inputs(B, 64, 13, np.random.default_rng(0))
-        run, _ = call(lib, packed, args, B, 64, 13)
+        run, _ = call(lib, packed, args, B, 64, 13, mxu_bf16)
         t, l = np.zeros(4096, np.int64), np.zeros(4096, np.int32)
         for _ in range(3):
             lib.timed_dump(t.ctypes.data, l.ctypes.data)
@@ -142,7 +152,8 @@ extern "C" int timed_dump(long long* t, int* l) {
             agg[int(line)][0] += int(dt)
             agg[int(line)][1] += 1
         total = t[n - 1] - t[0]
-        print(f"B={B} T=64 W=13: {total} cycles from the first barrier to the last", flush=True)
+        print(f"{'bf16' if mxu_bf16 else 'f64'} path, B={B} T=64 W=13: {total} "
+              "cycles from the first barrier to the last", flush=True)
         for line, (cyc, k) in sorted(agg.items(), key=lambda kv: -kv[1][0])[:30]:
             print(f"  line {line:4d} x{k:3d} {cyc:9d} cycles {100 * cyc / total:5.1f}%  "
                   f"{lines[line - 3].strip()[:60]} | {lines[line - 2].strip()[:50]}")
@@ -334,12 +345,14 @@ def main() -> None:
         raise SystemExit("torch_k2_probe: needs a CUDA device")
     os.makedirs(OUT, exist_ok=True)
     modes = {"timeline": timeline, "variants": variants, "dense": dense, "dmma": dmma}
-    if len(sys.argv) != 2 or sys.argv[1] not in modes:
-        raise SystemExit(f"usage: {sys.argv[0]} {'|'.join(modes)}")
+    args = sys.argv[1:]
+    bf16 = args[1:] == ["--mxu-bf16"]
+    if not args or args[0] not in modes or (args[1:] and not (bf16 and args[0] == "timeline")):
+        raise SystemExit(f"usage: {sys.argv[0]} {'|'.join(modes)} (timeline [--mxu-bf16])")
     print(chip_smoke.subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    modes[sys.argv[1]]()
+    modes[args[0]](*([True] if bf16 else []))
 
 
 if __name__ == "__main__":
