@@ -38,7 +38,10 @@ line; any failure exits non-zero before the last line:
    (32,100) and at (3,17,5), ragged in every tile dimension, with padded
    rows, a length-1 video and a one-word query:
    logits within rtol 1e-4 / atol 2e-4, match scores within atol 1e-5,
-   K1's indices from both equal or a printed near-tie; the f32 plain
+   K1's indices from both equal or a printed near-tie; a model of
+   ``max_vlen`` 1 (its position tables (1, D)) at (4,1,1) on both product
+   paths: the f64 path within the same bounds, the bf16 path finite and
+   within bf16_charades's band (B); the f32 plain
    version's own error; CUDA-event and in-kernel times, the plain version's
    time (f32) and the FLOP bound; threads and dynamic shared memory per
    block and workspace bytes per sample;
@@ -73,10 +76,10 @@ line; any failure exits non-zero before the last line:
    ``FeatureStore.from_dir`` natively and through NumPy in turns, the tables
    bit-equal (it fails if the library does not build or load); (b) in a
    fresh deterministic process (``--streaming-worker``), on the resume
-   check's 512-query set, 2 epochs and ``infer_trainset()`` at
+   check's 512-query set, 1 epoch and ``infer_trainset()`` at
    ``mc_droprate`` 0.5 resident against streamed, for an f32 table and an
    int8 one (auto mode, the budget under the table): params, ``best.npz``
-   and the pickle bit-equal; (c) one epoch of the Train cell's 1,600
+   and the pickle bit-equal; (c) one epoch of the Train cell's first 800
    queries resident and streamed in turns, and one streamed int8 epoch:
    ms a step, the upload's bytes and time a step, 20 streamed steps
    profiled, K1 once a step and a test batch, K2 never, and the fused ->
@@ -120,8 +123,8 @@ line; any failure exits non-zero before the last line:
    (``runtime/graphs.py``), which every resident Trainer above replays on
    the card: (a)-(c) in a fresh deterministic process (``--graphs-worker``)
    on the Sweep/Train cell's table, each Trainer graphed and, on the same
-   weights, eager: (a) ``Trainer.train()`` for one epoch of 1,605 queries
-   (100 replayed steps and a ragged eager one) at ``compute_dtype``
+   weights, eager: (a) ``Trainer.train()`` for one epoch of 805 queries
+   (50 replayed steps and a ragged eager one) at ``compute_dtype``
    float32 and bfloat16: params, optimizer moments, losses and IoUs
    bit-equal; (b) ``test()`` (flax, fused, ``fused_mxu_bf16``) and
    ``infer_trainset()`` at mc 0 and 0.5 (sequential, ``fold_mc``,
@@ -145,7 +148,7 @@ line; any failure exits non-zero before the last line:
    the Sweep/Train cell's table: (a) in a fresh deterministic process
    (``--parallel-worker <dir> 1 0``), world 1 over NCCL (``file://``
    rendezvous): a Trainer with a mesh on the one-rank group against the
-   unsharded Trainer, one epoch of 1,605 queries (100 replayed steps and a
+   unsharded Trainer, one epoch of 805 queries (50 replayed steps and a
    ragged one), graphs captured with the collectives inside: params,
    losses, IoUs and test IoUs bit-equal; the fused and flax test sweeps and
    the MC sweep at mc 0.5 over 20 batches of 96, bit-equal; ms a graphed
@@ -172,10 +175,13 @@ line; any failure exits non-zero before the last line:
    ``Predictor.from_bundle`` serving 96 raw test requests (K1): params,
    the sweep's logits, spans and match scores, the served spans and
    logits bit-equal to those of the same params loaded directly;
-15. tools_charades: each of the five tools (``tools/torch_{bench_span_decode,
-   bench_fused,bench_serve,validate_pipeline,full_loop_demo}.py``) in its own
-   process at a cut (``tools_phase``): exit 0, its JSON's keys, K1 launched
-   in each and K2 in the three with fused sweeps; their numbers;
+15. tools_charades: each of the twelve tools (``tools/torch_{bench_span_decode,
+   bench_fused,bench_serve,validate_pipeline,full_loop_demo,
+   bench_step_breakdown,bench_train_batch,bench_bf16_train,bench_eval_batch,
+   sweep_ablation,bench_int8_table,real_assets_parity}.py``) in its own
+   process at a cut (``tools_phase``): exit 0, its JSON's keys, no share of
+   the peak above 1, K1 launched in each and K2 in exactly the seven with
+   fused sweeps; their numbers;
 16. kernels: one entry per ported kernel (K2's bf16 path apart) with its
    launches on the main paths and its check against the plain version; the
    seconds per phase.
@@ -229,6 +235,10 @@ from hual_tpu_torch.utils.metrics import time_to_index_al
 from hual_tpu_torch.utils.tf1_port import (crc32c, load_tf1_checkpoint,
                                            port_checkpoint, word_vectors_path)
 from hual_tpu_torch.weights import _leaves, load_jax_params, to_jax_params
+
+# the tools' shared module: K2's FLOP count serves this script and the tools
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+from torch_tool_common import k2_flops  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
@@ -783,32 +793,6 @@ def sweep_dataset(workdir: str, rng: np.random.Generator):
     return config, store, gen_or_load_dataset(config)
 
 
-def k2_flops(B: int, T: int, W: int, D: int = 128, attn_layer: int = 2) -> int:
-    """FLOPs of K2's products (2 per multiply-add) at these shapes; the
-    elementwise work (softmax, LN, gates) is left out, so the bound it
-    gives is a lower bound."""
-    def mm(rows, k, n):
-        return 2 * rows * k * n
-
-    def conv(rows):                     # 4 x (depthwise k=7 + pointwise)
-        return 4 * (mm(rows, D, D) + 2 * 7 * rows * D)
-
-    def attn(tq, tk):                   # q k^T and p v over all heads
-        return 2 * mm(tq, D, tk)
-
-    def dual(tq, tk):                   # 14 D x D products on `from` rows, 2 on `to`
-        return 14 * mm(tq, D, D) + 2 * mm(tk, D, D) + attn(tq, tq) + attn(tq, tk)
-
-    def cq(t1, t2):                     # trilinear, c2q, score_ @ score_t^T, q2c, dense
-        return 2 * mm(t1, D, t2) + mm(t1, t2, t1) + mm(t1, t1, D) + mm(t1, 4 * D, D)
-
-    fe = conv(T) + 3 * mm(T, D, D) + attn(T, T) + mm(T, D, D)
-    per_sample = (conv(T) + conv(W) + attn_layer * (dual(T, W) + dual(W, T))
-                  + cq(T, W) + cq(W, T) + mm(T, 2 * D, D) + mm(T, D, 4)
-                  + mm(T, 4, D) + 2 * fe + 2 * mm(T, 2 * D, D) + 2 * mm(T, D, 1))
-    return B * per_sample
-
-
 def span_probs(start_logits, end_logits, mask, spans) -> np.ndarray:
     """p(s, e) = softmax(start)[s] * softmax(end)[e] of each row's span, f64."""
     sl = np.where(mask > 0, start_logits.astype(np.float64), -np.inf)
@@ -860,6 +844,38 @@ def k2_packs() -> dict[int, PackedWeights]:
                        generator=torch.Generator().manual_seed(SEED)).to(DEVICE).eval()
         packs[T] = pack_weights(model)
     return packs
+
+
+def k2_vlen1_check(kw: dict) -> dict:
+    """K2 for a model of ``max_vlen`` 1 at Charades width (both position
+    tables (1, D)), B=4, T=W=1, on both product paths against the plain
+    version in f64: the f64 path within the phase's bounds, the bf16 path
+    finite and within bf16_charades's band (B)."""
+    model = SeqPAN(**{k: v for k, v in CHARADES.items() if k not in ("name", "max_tlen")}
+                   | {"max_vlen": 1, "num_chars": 60},
+                   generator=torch.Generator().manual_seed(SEED + 1)).to(DEVICE).eval()
+    packed = pack_weights(model)
+    check(packed.max_pos == 1, f"max_vlen 1 packs a table of {packed.max_pos} rows")
+    args = k2_inputs(4, 1, 1, np.random.default_rng(SEED + 9))
+    got = k2.fused_forward(packed, *args, **kw)
+    got_bf16 = k2.fused_forward(packed, *args, **kw, mxu_bf16=True)
+    torch.cuda.synchronize()
+    p64 = PackedWeights(packed.buffer.double(), packed.layout, packed.attn_layer)
+    a64 = [a.double() if a.is_floating_point() else a for a in args]
+    ref = forward_math(p64, *a64, **kw)
+    plain_bf16 = forward_math(p64, *a64, **kw, mxu_bf16=True)
+    logit_err = max((got[i].double() - ref[i]).abs().max().item() for i in (0, 1))
+    ms_err = (got[2].double() - ref[2]).abs().max().item()
+    check(all(torch.allclose(got[i].double(), ref[i], rtol=1e-4, atol=2e-4)
+              for i in (0, 1)) and ms_err <= 1e-5,
+          f"K2 at max_vlen 1 differs from the plain version: {logit_err}, {ms_err}")
+    stats, _ = bf16_stats(got_bf16, ref, plain_bf16, got)
+    for name, st in stats.items():
+        check(st["finite"] and st["max_abs_err"] <= st["band"],
+              f"K2 bf16 at max_vlen 1: {name} {st}")
+    return {"B": 4, "T": 1, "W": 1, "max_pos": packed.max_pos,
+            "max_abs_err": logit_err, "match_scores_max_abs_err": ms_err,
+            "bf16": stats}
 
 
 def fused_forward_phase(W: int) -> dict:
@@ -934,7 +950,8 @@ def fused_forward_phase(W: int) -> dict:
                          4 * k2.workspace_floats(T, Wq, CHARADES["dim"],
                                                  CHARADES["num_heads"])})
     emit({"fused_forward": {
-        "shapes": rows, "max_len": k2.MAX_LEN, "max_dim": k2.MAX_DIM,
+        "shapes": rows, "max_vlen_1": k2_vlen1_check(kw),
+        "max_len": k2.MAX_LEN, "max_dim": k2.MAX_DIM,
         "reference": "errors against the plain version in f64 on the card; "
                      "plain_ms times it in f32",
         "timing": "ms: median of 20 calls by CUDA events, queued behind a device "
@@ -1061,6 +1078,10 @@ def sweep_phase(workdir: str, config, store, dataset) -> dict:
 TRAIN = dict(epochs=2, batch_size=16, lr=1e-4, droprate=0.2, clip_norm=1.0,
              weight_decay=0.01)
 TRAIN_QUERIES, PROFILE_STEPS, GUMBEL_QUERIES = 1600, 20, 960
+# the depth of the streamed epochs in turns (streaming_charades (c)) and of
+# the graphed-against-eager epochs (graphs_charades, parallel_charades):
+# half the Train cell's queries, so the whole run fits its time
+CUT_QUERIES = 800
 
 
 def train_config(config, ckpt_dir: str, **train):
@@ -1537,11 +1558,12 @@ def replay_check(workdir: str) -> dict:
 # auto, with train.hbm_budget_gb set to half the table)
 REPLAY_RUNS = (("f32_resident", "float32", False), ("f32_streamed", "float32", True),
                ("int8_resident", "int8", False), ("int8_auto", "int8", None))
+REPLAY_EPOCHS = 1
 
 
 def streaming_worker(root: str) -> None:
-    """The replay's process: deterministic mode before CUDA starts, then 2
-    epochs from one init and ``infer_trainset()`` at mc_droprate 0.5 (flax
+    """The replay's process: deterministic mode before CUDA starts, then
+    REPLAY_EPOCHS from one init and ``infer_trainset()`` at mc_droprate 0.5 (flax
     sweeps) for each of REPLAY_RUNS through ``cli.build_trainer``; the
     streamed runs must equal the resident ones bit for bit (params,
     best.npz, pickle).  Prints one JSON line."""
@@ -1554,6 +1576,7 @@ def streaming_worker(root: str) -> None:
         cfg = copy.deepcopy(base)
         cfg.suffix, cfg.model.feature_dtype = name, dtype
         cfg.train.seed, cfg.train.save_state_every = SEED, 0
+        cfg.train.epochs = REPLAY_EPOCHS
         cfg.train.sweep_backend, cfg.train.mc_droprate = "flax", 0.5
         cfg.train.host_streaming = hs
         if hs is None:
@@ -1589,7 +1612,7 @@ def streaming_worker(root: str) -> None:
         rows = len(ra) == len(rb) and all(_same_row(x, y) for x, y in zip(ra, rb))
         check(params and best and rows, f"replay {b} vs {a}: params equal {params}, "
                                         f"best.npz equal {best}, pickle equal {rows}")
-    emit({"queries": len(shared["dataset"]["train_set"]), "epochs": base.train.epochs,
+    emit({"queries": len(shared["dataset"]["train_set"]), "epochs": REPLAY_EPOCHS,
           "runs": out, "bit_equal": True, "pickles_equal": True,
           "deterministic": "runtime.debug.enable_deterministic() before CUDA started",
           "auto_budget_gb": shared["features"].packed.size / 1e9 / 2})
@@ -1621,12 +1644,12 @@ def upload_bytes(tr: Trainer, sel: np.ndarray) -> dict:
 
 
 def streamed_epochs(workdir: str, config, store, dataset, table) -> tuple[dict, object]:
-    """(c) One epoch each of the Train cell's 1,600 queries, resident and
+    """(c) One epoch each of the Train cell's first 800 queries, resident and
     streamed in turns (resident, streamed, streamed, resident; f32, fused
     sweeps asked for), then one streamed int8 epoch; the upload's bytes and
     time, and a profile of 20 streamed steps.  Returns the record and the
     streamed f32 trainer."""
-    sub = dict(dataset, train_set=dataset["train_set"][:TRAIN_QUERIES])
+    sub = dict(dataset, train_set=dataset["train_set"][:CUT_QUERIES])
     log = logging.getLogger("chip_smoke.streaming")
     captured = Captured()
     log.addHandler(captured)
@@ -1647,7 +1670,7 @@ def streamed_epochs(workdir: str, config, store, dataset, table) -> tuple[dict, 
     check(trainers["streamed"].export_device_features() is None
           and trainers["resident"].export_device_features()[0] is table[0],
           "streaming: residency")
-    n_steps = math.ceil(TRAIN_QUERIES / TRAIN["batch_size"])
+    n_steps = math.ceil(CUT_QUERIES / TRAIN["batch_size"])
     n_test = math.ceil(len(dataset["test_set"]) / config.eval_batch_size)
     epochs: dict[str, list] = {"resident": [], "streamed": [], "streamed_int8": []}
     main_k1 = 0
@@ -1709,7 +1732,7 @@ def streamed_epochs(workdir: str, config, store, dataset, table) -> tuple[dict, 
     profile = device_profile(one_step, calls=PROFILE_STEPS, top=8, match="span_decode")
     stream.close()   # left after 2 x PROFILE_STEPS batches: ends its prefetch thread
     step_median = statistics.median(e["step_ms"] for e in epochs["streamed"])
-    return {"queries": TRAIN_QUERIES, "steps_per_epoch": n_steps,
+    return {"queries": CUT_QUERIES, "steps_per_epoch": n_steps,
             "test_batches_per_epoch": n_test, "epochs_in_turns": epochs,
             "fallback_warnings": warnings,
             "upload_bytes_per_step": nbytes,
@@ -1847,9 +1870,10 @@ def streaming_phase(workdir: str, config, store, dataset, table, flat) -> dict:
     emit({"streaming_charades": {
         "card": CARD[0], "native_loader": loader, "replay": replay, "train": epochs,
         "fold_mc": fold, "serve_from_trainer": serving,
-        "reduced": {"train": f"12,408 queries -> {TRAIN_QUERIES}, 50 epochs -> 1 a run",
+        "reduced": {"train": f"12,408 queries -> {CUT_QUERIES}, 50 epochs -> 1 a run",
                     "fold_mc": f"12,408 queries -> {FOLD_BATCHES * 96}",
-                    "replay": f"{RESUME_DATA['n_train']} queries, 2 epochs"},
+                    "replay": f"{RESUME_DATA['n_train']} queries, {REPLAY_EPOCHS} "
+                              "epoch"},
         "seconds": time.perf_counter() - t0,
         "timing": "seconds: host clock; step_ms: an epoch's train seconds over its "
                   "steps (one fetch at the epoch's end); upload_ms: one batch's "
@@ -2350,9 +2374,9 @@ def loop_phase(workdir: str, config, warm: dict) -> dict:
 
 
 # -- phase 12 -----------------------------------------------------------------
-# (a)'s train set: the Train cell's queries and 5 more, 100 full batches of 16
-# (replayed) and a ragged one of 5 (the eager step after the replays)
-GRAPH_QUERIES = TRAIN_QUERIES + 5
+# (a)'s train set: 50 full batches of 16 (replayed) and a ragged one of 5
+# (the eager step after the replays)
+GRAPH_QUERIES = CUT_QUERIES + 5
 # (b)'s Trainers: train options on train_config's (fused sweeps); test() runs
 # on those at mc 0, infer_trainset() on all
 GRAPH_SWEEPS = {"flax": dict(sweep_backend="flax"), "fused": {},
@@ -2815,7 +2839,7 @@ def parallel_world1(root: str) -> None:
     try:
         mesh = make_mesh()
         out, tables, runs = {"mesh": repr(mesh)}, {}, {}
-        # (a) one epoch of 1,605 queries: 100 replayed steps and a ragged one
+        # (a) one epoch of 805 queries: 50 replayed steps and a ragged one
         for name, m in (("sharded", mesh), ("unsharded", None)):
             tr = parallel_trainer(root, config, store, dataset, GRAPH_QUERIES, m,
                                   tables.get(name), name)
@@ -3301,20 +3325,57 @@ TOOLS = (
      ("stages",)),
     ("full_loop_demo", ["--n-train", "256", "--n-test", "64", "--epochs", "1",
                         "--rounds", "1"], True, ("times", "rounds", "round_stages")),
+    ("bench_step_breakdown", ["--iters", "20", "--epoch-steps", "50"], False,
+     ("gather_labels_ms", "forward_ms", "fwd_bwd_ms", "eager_step_ms",
+      "graphed_step_ms", "step_flops_g", "mfu", "not_applicable")),
+    ("bench_train_batch", ["--batches", "16", "64", "256", "--iters", "2"], False,
+     ("rows", "best", "speedup_vs_b16")),
+    ("bench_bf16_train", ["--iters", "2"], False, ("rows", "bf16_speedup")),
+    ("bench_eval_batch", ["--batches", "96", "192", "--iters", "2"], True,
+     ("grid", "best")),
+    ("sweep_ablation", ["--batches", "256", "--folds", "0", "1", "--pairs", "1024",
+                        "--iters", "2"], True, ("grid", "best", "not_applicable")),
+    ("bench_int8_table", ["--iters", "2"], True, ("upload_probe", "gather_path")),
+    ("real_assets_parity", ["--dry-run", "--n-train", "256", "--n-test", "64",
+                            "--epochs", "1", "--rounds", "1"], True,
+     ("table", "loop_summary")),
 )
+# the tools that take a working directory
+ROOTED_TOOLS = ("bench_serve", "validate_pipeline", "full_loop_demo",
+                "real_assets_parity")
+
+
+def peak_shares(result) -> list[float]:
+    """Every share of the peak (a key ending in ``mfu``) in a tool's JSON."""
+    if isinstance(result, dict):
+        return [v for k, v in result.items() if k.endswith("mfu")] + [
+            x for v in result.values() for x in peak_shares(v)]
+    if isinstance(result, list):
+        return [x for v in result for x in peak_shares(v)]
+    return []
 
 
 def tools_phase(workdir: str) -> dict:
-    """Phase 15: each of the five tools once, in its own process, at its
+    """Phase 15: each of the twelve tools once, in its own process, at its
     cut: ``torch_bench_span_decode`` 20 calls a decoder and 4 infer steps
     (its shapes are not cut); ``torch_bench_fused`` 3 sweeps of 7 batches of
     96 a row (21 batches, 10 sweeps); ``torch_bench_serve`` 16 single
     requests and 2 chunks a batch size (64 and 10); ``torch_validate_pipeline``
     256 train / 64 test queries, 1 epoch (2,000 / 500, 3 epochs);
     ``torch_full_loop_demo`` 256 / 64 queries, 1 epoch, 1 round (12,403 /
-    3,720, 50 epochs, 3 rounds).  Each must exit 0, write its JSON with the
-    expected keys and launch K1; the three that run fused sweeps must launch
-    K2.  Returns the launches of all five."""
+    3,720, 50 epochs, 3 rounds); ``torch_bench_step_breakdown`` 20 calls a
+    stage and a 50-step graphed epoch (50 calls, 125 steps);
+    ``torch_bench_train_batch`` batches 16, 64 and 256, 2 epochs each (16 to
+    256 by doubling, 10 epochs); ``torch_bench_bf16_train`` 2 epochs a dtype
+    (10); ``torch_bench_eval_batch`` batches 96 and 192, 2 sweeps each (16
+    to 192, 10 sweeps); ``torch_sweep_ablation`` batch 256 over 1,024
+    pairs, 2 sweeps a row (256 to 1,024 over 4,096 pairs, 10 sweeps);
+    ``torch_bench_int8_table`` 2 epochs and 2 sweeps a table (10);
+    ``torch_real_assets_parity --dry-run`` 256 / 64 queries, 1 epoch, 1
+    round (48 / 16, 2 epochs).  Each must exit 0, write its JSON with the
+    expected keys, print its launches, hold no share of the peak above 1
+    and launch K1; those that run fused sweeps, and only they, must launch
+    K2.  Returns the launches of all twelve."""
     t_phase = time.perf_counter()
     root = os.path.join(workdir, "tools")
     os.makedirs(root)
@@ -3322,7 +3383,7 @@ def tools_phase(workdir: str) -> dict:
     runs = {}
     for name, args, with_k2, keys in TOOLS:
         out = os.path.join(root, f"torch_{name}.json")
-        if name in ("bench_serve", "validate_pipeline", "full_loop_demo"):
+        if name in ROOTED_TOOLS:
             args = args + ["--root", os.path.join(root, name)]
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, os.path.join(ROOT, "tools", f"torch_{name}.py"),
@@ -3335,6 +3396,9 @@ def tools_phase(workdir: str) -> dict:
             res = json.load(f)
         check(all(k in res for k in keys), f"tools: torch_{name}'s JSON lacks "
                                            f"{[k for k in keys if k not in res]}")
+        shares = peak_shares(res)
+        check(all(0.0 < x <= 1.0 for x in shares),
+              f"tools: torch_{name}'s shares of the peak {shares}")
         n = res["launches"]
         printed = [json.loads(line) for line in proc.stdout.splitlines()
                    if line.startswith('{"launches"')]
@@ -3347,6 +3411,9 @@ def tools_phase(workdir: str) -> dict:
         if name == "full_loop_demo":
             res = {k: res[k] for k in ("times", "round_stages", "re0_launches",
                                        "launches", "card")}
+        elif name == "real_assets_parity":
+            res = {"table": res["table"], "launches": n, "card": res["card"],
+                   "times": res["loop_summary"]["times"]}
         runs[name] = {"arguments": args, "seconds": seconds, "result": res}
     emit({"tools_charades": {"card": CARD[0], "runs": runs, "launches": total,
                              "seconds": time.perf_counter() - t_phase}})

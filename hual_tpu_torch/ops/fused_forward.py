@@ -28,7 +28,8 @@ conditioned predictor.  Its inputs are the projected and normalised streams
 
 Packed layout: each leaf is stored row-major in the JAX package's layout
 with its unit axes dropped: a dense kernel is ``(in, out)``, a depthwise
-filter ``(k, D)``, a vector ``(n,)``, a table ``(rows, D)``.  The 18 leaves
+filter ``(k, D)``, a vector ``(n,)``; the two position tables keep their
+``(max_vlen, D)``, at ``max_vlen`` 1 too.  The 18 leaves
 of the input front (``word_embs``, ``char_embs``, ``query_conv1d``,
 ``q_layer_norm``, ``video_conv1d``, ``v_layer_norm``) are left out: they
 run before K2, in :func:`encoder_inputs`.
@@ -166,8 +167,17 @@ def bf16_schedule(attn_layer: int) -> list[str]:
                                 "predictor/end_hidden/kernel"]
 
 
-def _kernel_layout(jax_shaped: torch.Tensor) -> torch.Tensor:
-    """A leaf in the JAX package's shape with its unit axes dropped."""
+# The two position tables, (max_vlen, D): they keep both axes, so that
+# PackedWeights.max_pos reads max_vlen at max_vlen 1 too.
+POS_TABLES = ("pos_emb/position_embeddings",
+              "predictor/feature_encoder/pos_emb/position_embeddings")
+
+
+def _kernel_layout(key: str, jax_shaped: torch.Tensor) -> torch.Tensor:
+    """A leaf in the JAX package's shape with its unit axes dropped, but
+    for the position tables (:data:`POS_TABLES`)."""
+    if key in POS_TABLES:
+        return jax_shaped
     shape = [s for s in jax_shaped.shape if s != 1] or [1]
     return jax_shaped.reshape(shape)
 
@@ -273,7 +283,7 @@ def pack_weights(model, out: PackedWeights | None = None) -> PackedWeights:
                 continue
             # the layout moves of K2's leaves are indexing and .T only, so
             # weights.py's NumPy moves apply to tensors as they are
-            leaves[key] = _kernel_layout(to_jax(param.detach()))
+            leaves[key] = _kernel_layout(key, to_jax(param.detach()))
         order = pack_order(model.attn_layer)
         if sorted(order) != sorted(leaves):
             raise ValueError("K2's pack order and the model's leaves differ: "

@@ -5,7 +5,8 @@ kernel in interpret mode, as ``tests/test_fused_forward.py`` runs it) and
 the port's ``seqpan_forward_fused`` (input front, K2's wrapper on its CPU
 route = ``forward_math``, K1's wrapper on its CPU route), from the same
 carried-over params; and through the port's eager SeqPAN.  Batches are
-ragged (B=5) with padded rows, a length-1 video and a one-word query.
+ragged (B=5) with padded rows, a length-1 video and a one-word query; the
+``max_vlen`` 1 case is B=3 at T=W=1, where both position tables are (1, D).
 
 Tolerances: logits rtol 1e-4 / atol 2e-4, match scores atol 1e-5 (the
 bounds of tests/test_fused_forward.py: the frameworks sum in other orders);
@@ -32,23 +33,27 @@ from hual_tpu_torch.weights import load_jax_params, to_jax_params
 
 B, W, C, V = 5, 6, 5, 24
 CASES = {
-    # name: widths, gumbel
-    "d32_h4_l1": (dict(dim=32, num_heads=4, attn_layer=1, max_vlen=16), False),
-    "d32_h4_l1_gumbel": (dict(dim=32, num_heads=4, attn_layer=1, max_vlen=16), True),
-    "d128_h8_l2": (dict(dim=128, num_heads=8, attn_layer=2, max_vlen=16), False),
+    # name: widths, gumbel, batch, query words
+    "d32_h4_l1": (dict(dim=32, num_heads=4, attn_layer=1, max_vlen=16), False, B, W),
+    "d32_h4_l1_gumbel": (dict(dim=32, num_heads=4, attn_layer=1, max_vlen=16),
+                         True, B, W),
+    "d128_h8_l2": (dict(dim=128, num_heads=8, attn_layer=2, max_vlen=16), False, B, W),
+    "d32_h4_l1_vlen1": (dict(dim=32, num_heads=4, attn_layer=1, max_vlen=1),
+                        False, 3, 1),
 }
 TEXT = dict(word_dim=20, char_dim=8, num_chars=30)
 
 
-def _batch(T: int, seed: int) -> tuple[dict, np.ndarray]:
+def _batch(T: int, seed: int, Bn: int = B, Wn: int = W) -> tuple[dict, np.ndarray]:
     rng = np.random.default_rng(seed)
-    v_len = np.array([T, 1, 9, T, 5], np.int32)          # a length-1 video
-    q_len = np.array([W, 3, 1, 4, W])                    # a one-word query
-    word_ids = np.where(np.arange(W)[None] < q_len[:, None],
-                        rng.integers(1, 15, (B, W)), 0).astype(np.int32)
-    char_ids = rng.integers(0, 30, (B, W, C)).astype(np.int32)
+    # a length-1 video and a one-word query
+    v_len = np.minimum(np.array([T, 1, 9, T, 5], np.int32)[:Bn], T)
+    q_len = np.minimum(np.array([Wn, 3, 1, 4, Wn])[:Bn], Wn)
+    word_ids = np.where(np.arange(Wn)[None] < q_len[:, None],
+                        rng.integers(1, 15, (Bn, Wn)), 0).astype(np.int32)
+    char_ids = rng.integers(0, 30, (Bn, Wn, C)).astype(np.int32)
     char_ids[word_ids == 0] = 0
-    feats = rng.normal(size=(B, T, V)).astype(np.float32)
+    feats = rng.normal(size=(Bn, T, V)).astype(np.float32)
     batch = {"video_features": feats, "video_seq_len": v_len,
              "word_ids": word_ids, "char_ids": char_ids}
     return batch, rng.normal(size=(13, TEXT["word_dim"])).astype(np.float32)
@@ -56,8 +61,8 @@ def _batch(T: int, seed: int) -> tuple[dict, np.ndarray]:
 
 @pytest.fixture(scope="module", params=list(CASES))
 def case(request):
-    kw, gumbel = CASES[request.param]
-    batch, wv = _batch(kw["max_vlen"], seed=len(request.param))
+    kw, gumbel, Bn, Wn = CASES[request.param]
+    batch, wv = _batch(kw["max_vlen"], len(request.param), Bn, Wn)
     jmodel = JaxSeqPAN(**kw, **TEXT, use_gumbel=gumbel, tau=0.3)
     params = jmodel.init({"params": jax.random.key(0)}, batch, wv, 0.0,
                          deterministic=True)
@@ -85,7 +90,8 @@ def test_fused_forward_matches_jax_kernel(case):
     with torch.no_grad():
         out = seqpan_forward_fused(model, pack_weights(model), batch, wv)
     out = {k: v.numpy() for k, v in out.items()}
-    assert out["match_scores"].shape == (B, model.max_vlen, 4)
+    Bn = batch["word_ids"].shape[0]
+    assert out["match_scores"].shape == (Bn, model.max_vlen, 4)
     for key in ("v_mask", "q_mask", "start_index", "end_index"):
         assert out[key].dtype == np.int32, key
     _assert_close(out, ref)
@@ -152,13 +158,74 @@ def test_pack_weights_leaf_count_at_charades_width():
     assert packed.buffer.numel() == expected
 
 
+
+def _old_layout(jax_shape) -> tuple[int, ...]:
+    """The pack's layout rule for every leaf but the position tables: the
+    JAX shape with its unit axes dropped."""
+    return tuple(s for s in jax_shape if s != 1) or (1,)
+
+
+@pytest.mark.parametrize("max_vlen", [1, 2, 16])
+def test_pack_layout_keeps_the_position_tables_2d(max_vlen):
+    """Both position tables stay (max_vlen, D), so ``max_pos`` is max_vlen
+    at 1 too; every other leaf keeps the layout it had, the f32 buffer
+    holds each leaf's values in JAX order, and the bf16 companion's layout
+    and ring schedule do not depend on the tables' shape.  At max_vlen >= 2
+    every shape is what the old rule gave."""
+    kw = dict(vdim=8, dim=32, num_heads=4, attn_layer=1, word_dim=8,
+              char_dim=4, num_chars=10)
+    model = SeqPAN(max_vlen=max_vlen, **kw,
+                   generator=torch.Generator().manual_seed(3))
+    packed = pack_weights(model)
+    assert packed.max_pos == max_vlen
+    jax = {k[len("params/"):]: v.shape for k, v in to_jax_params(model).items()}
+    for key, (_, shape) in packed.layout.items():
+        if key.endswith("pos_emb/position_embeddings"):
+            assert shape == (max_vlen, 32), key
+        else:
+            assert shape == _old_layout(jax[key]), key
+        if max_vlen >= 2:
+            assert shape == _old_layout(jax[key]), key
+        np.testing.assert_array_equal(
+            packed(key).numpy().reshape(-1),
+            np.asarray(to_jax_params(model)["params/" + key]).reshape(-1))
+    # the companion and its ring schedule are those of a wider table
+    wide = pack_weights(SeqPAN(max_vlen=16, **kw,
+                               generator=torch.Generator().manual_seed(3)))
+    assert packed.bf16_layout == wide.bf16_layout
+    torch.testing.assert_close(packed.schedule, wide.schedule, rtol=0, atol=0)
+    assert packed.bf16.shape == wide.bf16.shape
+    # an in-place repack keeps the buffers' addresses
+    ptrs = (packed.buffer.data_ptr(), packed.bf16.data_ptr())
+    assert pack_weights(model, out=packed) is packed
+    assert (packed.buffer.data_ptr(), packed.bf16.data_ptr()) == ptrs
+
+
+def test_wrapper_refuses_longer_inputs_at_max_vlen_1():
+    """At max_vlen 1 the guard passes T = W = 1 and refuses anything longer,
+    as the JAX package's (1, D) table would."""
+    model = SeqPAN(vdim=8, dim=16, num_heads=2, attn_layer=1, max_vlen=1,
+                   word_dim=8, char_dim=4, num_chars=10)
+    packed = pack_weights(model)
+    kw = dict(attn_layer=1, num_heads=2, tau=0.3, use_gumbel=False)
+    vf, qf, vm, qm = _k2_inputs(model)
+    out = k2.fused_forward(packed, vf, qf, vm, qm, **kw)
+    assert [tuple(o.shape) for o in out] == [(3, 1), (3, 1), (3, 1, 4)]
+    two = torch.zeros((3, 2, 16))
+    ones = torch.ones((3, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="positional table"):
+        k2.fused_forward(packed, two, qf, ones, qm, **kw)
+    with pytest.raises(ValueError, match="positional table"):
+        k2.fused_forward(packed, vf, two, vm, ones, **kw)
+
 def _k2_inputs(model, T=12, Wq=4, Bn=3, seed=0):
     D = model.dim
+    T, Wq = min(T, model.max_vlen), min(Wq, model.max_vlen)
     rng = np.random.default_rng(seed)
     vf = torch.from_numpy(rng.normal(size=(Bn, T, D)).astype(np.float32))
     qf = torch.from_numpy(rng.normal(size=(Bn, Wq, D)).astype(np.float32))
-    vm = torch.from_numpy((np.arange(T)[None] < np.array([T, 1, 7])[:, None])
-                          .astype(np.int32))
+    v_len = np.minimum(np.array([T, 1, 7]), T)
+    vm = torch.from_numpy((np.arange(T)[None] < v_len[:, None]).astype(np.int32))
     qm = torch.ones((Bn, Wq), dtype=torch.int32)
     return vf, qf, vm, qm
 
@@ -175,7 +242,8 @@ def test_wrapper_cpu_route_is_the_plain_version_and_counts_nothing(case):
     for g, p in zip(got, plain):
         assert g.dtype == torch.float32
         torch.testing.assert_close(g, p, rtol=0, atol=0)
-    assert [tuple(g.shape) for g in got] == [(3, 12), (3, 12), (3, 12, 4)]
+    T = min(12, model.max_vlen)
+    assert [tuple(g.shape) for g in got] == [(3, T), (3, T), (3, T, 4)]
     assert k2.fused_forward.launches == before      # no kernel ran
 
 

@@ -12,7 +12,8 @@ rounding, so the kernel equals ``forward_math(mxu_bf16=True)`` to 5e-7
 two agree only statistically: S (rms distance from the f64 version over
 the plain bf16 version's) in [0.5, 2], which a wrong fragment or
 descriptor layout (errors of O(1)) cannot meet.  The f64 path is held
-within 1e-5 of the plain version in f64.  One build (~15 s of g++) serves
+within 1e-5 of the plain version in f64.  The (3, 1, 1) cases run a model
+of ``max_vlen`` 1, whose position tables are (1, D).  One build (~15 s of g++) serves
 the module.
 """
 
@@ -37,7 +38,7 @@ def lib(tmp_path_factory):
 
 @pytest.mark.parametrize("B,T,W,D,H", [(1, 17, 5, 32, 4), (1, 49, 13, 32, 4),
                                        (1, 65, 13, 32, 4), (1, 17, 5, 36, 4),
-                                       (1, 17, 5, 20, 5)])
+                                       (1, 17, 5, 20, 5), (3, 1, 1, 32, 4)])
 def test_bf16_path_equals_its_plain_version(lib, B, T, W, D, H):
     res = emu.compare(lib, B, T, W, D, H, 1, mxu_bf16=True)
     for name, r in res.items():
@@ -55,7 +56,8 @@ def test_bf16_path_statistically(lib, B, T, W, D, L):
         assert r["exact"] <= 0.3, (name, r)
 
 
-@pytest.mark.parametrize("B,T,W,D,H", [(2, 17, 5, 36, 4), (1, 49, 13, 32, 4)])
+@pytest.mark.parametrize("B,T,W,D,H", [(2, 17, 5, 36, 4), (1, 49, 13, 32, 4),
+                                       (3, 1, 1, 32, 4)])
 def test_f64_path_equals_its_plain_version(lib, B, T, W, D, H):
     res = emu.compare(lib, B, T, W, D, H, 1, mxu_bf16=False)
     for name, r in res.items():

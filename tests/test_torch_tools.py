@@ -17,10 +17,17 @@ import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+import torch_bench_bf16_train  # noqa: E402
+import torch_bench_eval_batch  # noqa: E402
 import torch_bench_fused  # noqa: E402
+import torch_bench_int8_table  # noqa: E402
 import torch_bench_serve  # noqa: E402
 import torch_bench_span_decode  # noqa: E402
+import torch_bench_step_breakdown  # noqa: E402
+import torch_bench_train_batch  # noqa: E402
 import torch_full_loop_demo  # noqa: E402
+import torch_real_assets_parity  # noqa: E402
+import torch_sweep_ablation  # noqa: E402
 import torch_validate_pipeline  # noqa: E402
 from torch_train_helpers import one_torch_thread  # noqa: E402,F401
 
@@ -117,12 +124,16 @@ def test_full_loop_demo(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("tool", [torch_bench_span_decode, torch_bench_fused,
                                   torch_bench_serve, torch_validate_pipeline,
-                                  torch_full_loop_demo],
+                                  torch_full_loop_demo, torch_bench_step_breakdown,
+                                  torch_bench_train_batch, torch_bench_bf16_train,
+                                  torch_bench_eval_batch, torch_sweep_ablation,
+                                  torch_bench_int8_table, torch_real_assets_parity],
                          ids=lambda t: t.__name__)
 def test_tools_raise_without_a_card(tool, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tool.main(["--root", str(tmp_path / "r")] if tool in (
-            torch_full_loop_demo, torch_validate_pipeline, torch_bench_serve) else [])
+            torch_full_loop_demo, torch_validate_pipeline, torch_bench_serve,
+            torch_real_assets_parity) else [])
     assert not os.listdir(tmp_path)

@@ -33,11 +33,9 @@ import sys
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from torch_tool_common import (add_common_flags, device_info, device_of,  # noqa: E402
-                               reset_launches, seconds_per_call, seeded_model,
-                               synthetic_split, write_result)
-
-from hual_tpu_torch.runtime import graphs, steps  # noqa: E402
+from torch_tool_common import (Loops, add_common_flags, device_info,  # noqa: E402
+                               device_of, reset_launches, seconds_per_call,
+                               seeded_model, synthetic_split, write_result)
 
 N_SAMPLES = 2000
 WIDTHS: dict = {}      # SeqPAN's widths over Charades' (the tests narrow them)
@@ -66,13 +64,10 @@ def main(argv: list[str] | None = None) -> int:
     B, S = args.batch, args.steps
     pairs = B * S
     sels = (torch.arange(pairs, device=device) % N_SAMPLES).view(S, B)
-    loops = graphs.Graphs(device) if device.type == "cuda" else None
+    loops = Loops(device)
 
     def sweep(name: str, **kw):
-        if loops is not None:
-            return getattr(loops, name)(model, data, sels, None, word_vectors, **kw)
-        return getattr(steps, name)(model, steps.resident_batches(data, sels),
-                                    word_vectors, **kw)
+        return loops.sweep(name, model, data, sels, word_vectors, **kw)
 
     rows = []
 
@@ -107,8 +102,7 @@ def main(argv: list[str] | None = None) -> int:
     timed(f"infer_fusedclean_bf16stoch{tag}",
           lambda s: sweep("fused_infer_sweep", mc_droprate=0.5, seed=s,
                           mc_model=mc16, mxu_bf16=mx), True)
-    if loops is not None:
-        loops.close()
+    loops.close()
 
     if os.path.exists(args.out):
         with open(args.out) as f:
@@ -118,7 +112,7 @@ def main(argv: list[str] | None = None) -> int:
     write_result(args.out, {
         **device_info(device),
         "workload": f"sweeps, B={B} x {S} batches, SeqPAN at Charades width",
-        "graphed": loops is not None,
+        "graphed": loops.graphs is not None,
         "protocol": "host clock over --iters sweeps ending at a synchronisation "
                     "and a fetch of the last sweep's IoUs, after 2 warm-up sweeps",
         "rows": rows})
