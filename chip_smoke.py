@@ -64,10 +64,10 @@ line; any failure exits non-zero before the last line:
    K2 (one a test batch); the loss must be finite and fall; (c) a
    torch.profiler breakdown of 20 train steps; (d) a resume check in a
    fresh process (``--resume-worker``) through ``cli.main`` with
-   ``--deterministic``, on a synthetic set of 512 train queries at
+   ``--deterministic``, on a synthetic set of 256 train queries at
    Charades width: an uninterrupted 2-epoch run, one stopped after epoch 0
    and its resume from ``state.pt``, bit-equal; and the ms of a train step
-   with deterministic algorithms on and off; (e) the MC sweep at
+   with deterministic algorithms on and off (10 steps each); (e) the MC sweep at
    ``mc_droprate`` 0.5 with both backends, and live gumbel passes on a
    subset;
 9. streaming_charades, the Trainer's last options on the same dataset:
@@ -75,11 +75,12 @@ line; any failure exits non-zero before the last line:
    ``.npy`` files (their raw lengths, 24-120 clips x 1024 f32) and read by
    ``FeatureStore.from_dir`` natively and through NumPy in turns, the tables
    bit-equal (it fails if the library does not build or load); (b) in a
-   fresh deterministic process (``--streaming-worker``), on the resume
-   check's 512-query set, 1 epoch and ``infer_trainset()`` at
+   fresh deterministic process (``--streaming-worker``, run beside
+   loop_charades (c) and (d), its own record), on the resume
+   check's 256-query set, 1 epoch and ``infer_trainset()`` at
    ``mc_droprate`` 0.5 resident against streamed, for an f32 table and an
    int8 one (auto mode, the budget under the table): params, ``best.npz``
-   and the pickle bit-equal; (c) one epoch of the Train cell's first 800
+   and the pickle bit-equal; (c) one epoch of the Train cell's first 400
    queries resident and streamed in turns, and one streamed int8 epoch:
    ms a step, the upload's bytes and time a step, 20 streamed steps
    profiled, K1 once a step and a test batch, K2 never, and the fused ->
@@ -113,18 +114,23 @@ line; any failure exits non-zero before the last line:
    reference's 50, cut), on the train phase's table (the same tensor) and
    from its model's MC pickle: seconds of the update, train and infer
    stages, best R@1@0.7, K1 and K2 launches equal to the steps and batches
-   run; (c) re0 train and infer through ``cli.main``, then
-   ``orchestrate.main`` for 2 rounds on the dataset and schedule of
-   ``tools/synthetic_quality_comparison.py``: round 1's old pseudo-mIoU
-   0.5565 (the same dataset), each round's pseudo-mIoU inside
-   ``hual_tpu``'s and the reference's seed band, launches equal to the
-   epochs' steps and batches;
+   run; (c) ``tools/torch_synthetic_quality_comparison.py --seeds 12345``
+   in its own process, on the dataset and schedule of
+   ``tools/synthetic_quality_comparison.py`` (re0 + 2 rounds through
+   ``run_loop``): round 1's old pseudo-mIoU 0.5565 (the same dataset), each
+   round's pseudo-mIoU inside ``hual_tpu``'s and the reference's seed band,
+   launches equal to the epochs' steps and batches; (d) the command lines
+   on (c)'s tree: ``cli.main --mode infer_trainset`` from the re0
+   checkpoint, then ``orchestrate.main --rounds 1`` (no warm start): round
+   1's old pseudo-mIoU 0.5565 and its new one inside round 1's band,
+   launches equal to the batches and steps run;
 12. graphs_charades, the device-resident loops as captured CUDA graphs
    (``runtime/graphs.py``), which every resident Trainer above replays on
-   the card: (a)-(c) in a fresh deterministic process (``--graphs-worker``)
+   the card: (a)-(c) in a fresh deterministic process (``--graphs-worker``,
+   run beside loop_charades (c) and (d))
    on the Sweep/Train cell's table, each Trainer graphed and, on the same
-   weights, eager: (a) ``Trainer.train()`` for one epoch of 805 queries
-   (50 replayed steps and a ragged eager one) at ``compute_dtype``
+   weights, eager: (a) ``Trainer.train()`` for one epoch of 405 queries
+   (25 replayed steps and a ragged eager one) at ``compute_dtype``
    float32 and bfloat16: params, optimizer moments, losses and IoUs
    bit-equal; (b) ``test()`` (flax, fused, ``fused_mxu_bf16``) and
    ``infer_trainset()`` at mc 0 and 0.5 (sequential, ``fold_mc``,
@@ -141,14 +147,14 @@ line; any failure exits non-zero before the last line:
    deterministic mode on the Train cell: one graphed epoch, ms a step
    graphed and eager in turns, 20 graphed steps profiled (the host's launch
    calls and the device's idle share), each capture's seconds and pool
-   bytes, the test sweep and the MC sweep at mc 0.5 (whole train split)
+   bytes, the test sweep and the MC sweep at mc 0.5 (20 batches of 96)
    graphed and eager in turns; K1 and K2 launches equal to the steps and
    batches replayed in every run;
 13. parallel_charades, data parallelism (``hual_tpu_torch.parallel``) on
    the Sweep/Train cell's table: (a) in a fresh deterministic process
    (``--parallel-worker <dir> 1 0``), world 1 over NCCL (``file://``
    rendezvous): a Trainer with a mesh on the one-rank group against the
-   unsharded Trainer, one epoch of 805 queries (50 replayed steps and a
+   unsharded Trainer, one epoch of 405 queries (25 replayed steps and a
    ragged one), graphs captured with the collectives inside: params,
    losses, IoUs and test IoUs bit-equal; the fused and flax test sweeps and
    the MC sweep at mc 0.5 over 20 batches of 96, bit-equal; ms a graphed
@@ -175,13 +181,18 @@ line; any failure exits non-zero before the last line:
    ``Predictor.from_bundle`` serving 96 raw test requests (K1): params,
    the sweep's logits, spans and match scores, the served spans and
    logits bit-equal to those of the same params loaded directly;
-15. tools_charades: each of the twelve tools (``tools/torch_{bench_span_decode,
+15. tools_charades: each of the fourteen tools (``tools/torch_{bench_span_decode,
    bench_fused,bench_serve,validate_pipeline,full_loop_demo,
    bench_step_breakdown,bench_train_batch,bench_bf16_train,bench_eval_batch,
-   sweep_ablation,bench_int8_table,real_assets_parity}.py``) in its own
-   process at a cut (``tools_phase``): exit 0, its JSON's keys, no share of
-   the peak above 1, K1 launched in each and K2 in exactly the seven with
-   fused sweeps; their numbers;
+   sweep_ablation,bench_int8_table,real_assets_parity,strategy_ablation_loop,
+   mc_comparison}.py``) in its own process at a cut (``tools_phase``): exit
+   0, its JSON's keys, its launches printed once, no share of the peak
+   above 1, K1 launched in each and K2 in exactly the nine with fused
+   sweeps; the strategy ablation at mc 0 (deterministic) with round 0
+   bit-equal in its four variants, uncertainty/half the same run as
+   dichotomy/half and ``n_selected`` ⌈N/2⌉ or N; the MC comparison with no
+   uncertainty and dataset order at mc 0, N distinct nonzero uncertainties
+   and another order at mc 0.5; their numbers;
 16. kernels: one entry per ported kernel (K2's bf16 path apart) with its
    launches on the main paths and its check against the plain version; the
    seconds per phase.
@@ -191,6 +202,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import logging
@@ -236,8 +248,12 @@ from hual_tpu_torch.utils.tf1_port import (crc32c, load_tf1_checkpoint,
                                            port_checkpoint, word_vectors_path)
 from hual_tpu_torch.weights import _leaves, load_jax_params, to_jax_params
 
-# the tools' shared module: K2's FLOP count serves this script and the tools
+# the tools' shared modules: K2's FLOP count serves this script and the
+# tools; the quality tool's dataset, seed band and old mIoU (constants this
+# script compares against with its own code), loop_charades (c)
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+from torch_synthetic_quality_comparison import (COMPARISON,  # noqa: E402
+                                                QUALITY_BANDS, QUALITY_OLD_MIOU)
 from torch_tool_common import k2_flops  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1079,9 +1095,9 @@ TRAIN = dict(epochs=2, batch_size=16, lr=1e-4, droprate=0.2, clip_norm=1.0,
              weight_decay=0.01)
 TRAIN_QUERIES, PROFILE_STEPS, GUMBEL_QUERIES = 1600, 20, 960
 # the depth of the streamed epochs in turns (streaming_charades (c)) and of
-# the graphed-against-eager epochs (graphs_charades, parallel_charades):
-# half the Train cell's queries, so the whole run fits its time
-CUT_QUERIES = 800
+# the graphed-against-eager epochs (graphs_charades, parallel_charades): a
+# quarter of the Train cell's queries, so the whole run fits its time
+CUT_QUERIES = 400
 
 
 def train_config(config, ckpt_dir: str, **train):
@@ -1168,14 +1184,66 @@ def step_against_cpu(widths: dict, batch: dict, word_vectors) -> dict:
             "ious_card_vs_cpu_equal": bool(torch.equal(got["ious"].cpu(), want["ious"]))}
 
 
+class Worker:
+    """A fresh ``chip_smoke.py --<kind>-worker <root>`` process, started now
+    and read later (:meth:`result`), its output to files so that it never
+    stalls on a pipe while this process runs other work.  Every worker
+    still running when this process leaves the phases is killed."""
+    live: list = []
+
+    def __init__(self, kind: str, root: str):
+        self.what = f"{kind} worker"
+        env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
+        self.out, self.err = (tempfile.TemporaryFile("w+") for _ in range(2))
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                      f"--{kind}-worker", root],
+                                     stdout=self.out, stderr=self.err, text=True, env=env)
+        Worker.live.append(self)
+
+    def result(self, timeout: float = 600) -> tuple[dict, float]:
+        """The worker's last printed line as JSON and its seconds from its
+        start; fails when it exited non-zero."""
+        try:
+            code = self.proc.wait(timeout=timeout)
+        finally:
+            Worker.stop([self])
+        seconds = time.perf_counter() - self.t0
+        self.out.seek(0)
+        self.err.seek(0)
+        out, err = self.out.read(), self.err.read()
+        check(code == 0, f"{self.what} exited {code}:\n{out[-2000:]}\n{err[-4000:]}")
+        return json.loads(out.strip().splitlines()[-1]), seconds
+
+    @staticmethod
+    @contextlib.contextmanager
+    def all_stopped():
+        """Within the block workers may run; leaving it kills those still
+        running, a failed phase's included."""
+        try:
+            yield
+        finally:
+            Worker.stop()
+
+    @staticmethod
+    def stop(workers: list | None = None) -> None:
+        for w in list(Worker.live if workers is None else workers):
+            if w.proc.poll() is None:
+                w.proc.kill()
+                w.proc.wait()
+            Worker.live.remove(w)
+
+
 class Stop(Exception):
     pass
 
 
 # the resume check's synthetic set (tools/make_synthetic_data.py) at Charades
-# width: 512 train queries (32 steps an epoch), 192 test queries
-RESUME_DATA = dict(n_train=512, n_test=192, vdim=CHARADES["vdim"], max_raw_len=120,
+# width: 256 train queries (16 steps an epoch), 96 test queries
+RESUME_DATA = dict(n_train=256, n_test=96, vdim=CHARADES["vdim"], max_raw_len=120,
                    min_raw_len=24, seed=SEED % 997)
+# the steps of each timing of deterministic mode on and off
+DETERMINISTIC_STEPS = 10
 
 
 def resume_set(workdir: str) -> str:
@@ -1279,7 +1347,7 @@ def resume_worker(root: str) -> None:
 
     # the cost of deterministic mode: ms a train step (B=16), on/off/off/on
     order = torch.randperm(len(a.train_set), generator=torch.Generator().manual_seed(SEED))
-    sels = [order[i * 16:(i + 1) * 16].to(DEVICE) for i in range(PROFILE_STEPS + 1)]
+    sels = [order[i * 16:(i + 1) * 16].to(DEVICE) for i in range(DETERMINISTIC_STEPS + 1)]
 
     def step_ms() -> float:
         def one(i):
@@ -1287,13 +1355,13 @@ def resume_worker(root: str) -> None:
             steps.train_step(a.model, a.state.opt, b, a.word_vectors, TRAIN["lr"],
                              steps.make_generator(DEVICE, SEED, i),
                              drop_rate=TRAIN["droprate"])
-        one(PROFILE_STEPS)                              # warm-up
+        one(DETERMINISTIC_STEPS)                        # warm-up
         torch.cuda.synchronize()
         t = time.perf_counter()
-        for i in range(PROFILE_STEPS):
+        for i in range(DETERMINISTIC_STEPS):
             one(i)
         torch.cuda.synchronize()
-        return (time.perf_counter() - t) * 1e3 / PROFILE_STEPS
+        return (time.perf_counter() - t) * 1e3 / DETERMINISTIC_STEPS
 
     timing = {"deterministic": [], "default": []}
     for mode in ("deterministic", "default", "default", "deterministic"):
@@ -1307,7 +1375,7 @@ def resume_worker(root: str) -> None:
                            + os.environ["CUBLAS_WORKSPACE_CONFIG"]
                            + " set before CUDA started, deterministic algorithms",
           "step_ms": timing,
-          "step_ms_note": f"host clock over {PROFILE_STEPS} steps of B=16 ending in a "
+          "step_ms_note": f"host clock over {DETERMINISTIC_STEPS} steps of B=16 ending in a "
                           "synchronize, in turns on/off/off/on; 'default' keeps "
                           "CUBLAS_WORKSPACE_CONFIG and turns the algorithms off"})
 
@@ -1465,7 +1533,11 @@ def train_phase(workdir: str, config, store, dataset, table) -> dict:
             "dataset": dataset}
     emit({"train_charades": {
         "card": CARD[0], "reduced": {"epochs": "50 -> 2",
-                                       "train_queries": f"12,408 -> {TRAIN_QUERIES}"},
+                                       "train_queries": f"12,408 -> {TRAIN_QUERIES}",
+                                       "resume": f"512 -> {RESUME_DATA['n_train']} "
+                                                 f"train, 192 -> {RESUME_DATA['n_test']} "
+                                                 "test queries; deterministic timing 20 "
+                                                 f"-> {DETERMINISTIC_STEPS} steps"},
         "config": dict(TRAIN, span_decode="pallas", sweep_backend="fused",
                        T=CHARADES["max_vlen"], dim=CHARADES["dim"],
                        heads=CHARADES["num_heads"], attn_layer=CHARADES["attn_layer"]),
@@ -1539,19 +1611,19 @@ def native_loader(workdir: str, dataset) -> dict:
             "library": str(native.library_path().relative_to(ROOT))}
 
 
-def replay_check(workdir: str) -> dict:
+def start_replay(workdir: str) -> Worker:
     """(b) Streamed against resident training in a fresh deterministic
-    process (``--streaming-worker``) on the resume check's 512-query set."""
-    root = os.path.join(workdir, "resume")
-    env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "--streaming-worker", root],
-                          capture_output=True, text=True, env=env, timeout=600)
-    check(proc.returncode == 0, f"streaming worker exited {proc.returncode}:\n"
-                                f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-    out = json.loads(proc.stdout.strip().splitlines()[-1])
-    return {**out, "seconds_process": time.perf_counter() - t0}
+    process (``--streaming-worker``) on the resume check's 256-query set;
+    it runs beside loop_charades (c) and (d), whose times no metric reads,
+    and is read by :func:`replay_check`."""
+    return Worker("streaming", os.path.join(workdir, "resume"))
+
+
+def replay_check(worker: Worker) -> dict:
+    out, seconds = worker.result()
+    return {**out, "seconds_process_beside_loop": seconds,
+            "ran_beside": "loop_charades (c) and (d) and the graphs worker: its "
+                          "seconds share the card and the host"}
 
 
 # the replay's four runs: name, feature dtype, train.host_streaming (None:
@@ -1644,7 +1716,7 @@ def upload_bytes(tr: Trainer, sel: np.ndarray) -> dict:
 
 
 def streamed_epochs(workdir: str, config, store, dataset, table) -> tuple[dict, object]:
-    """(c) One epoch each of the Train cell's first 800 queries, resident and
+    """(c) One epoch each of the Train cell's first 400 queries, resident and
     streamed in turns (resident, streamed, streamed, resident; f32, fused
     sweeps asked for), then one streamed int8 epoch; the upload's bytes and
     time, and a profile of 20 streamed steps.  Returns the record and the
@@ -1701,9 +1773,10 @@ def streamed_epochs(workdir: str, config, store, dataset, table) -> tuple[dict, 
         os.chdir(here)
 
     # the upload alone, and 20 streamed steps on the host clock and profiled
+    # (the batches of epochs 0 and 1: one epoch of CUT_QUERIES has 25)
     tr = trainers["streamed"]
-    loader_sels = [s for s in TrainLoader(tr.train_set, TRAIN["batch_size"],
-                                          seed=tr.config.train.seed).index_iter(0)]
+    loader = TrainLoader(tr.train_set, TRAIN["batch_size"], seed=tr.config.train.seed)
+    loader_sels = [s for e in (0, 1) for s in loader.index_iter(e)]
     nbytes = upload_bytes(tr, loader_sels[0])
     upload_ms = []
     for sel in loader_sels[:PROFILE_STEPS]:
@@ -1863,17 +1936,16 @@ def streaming_phase(workdir: str, config, store, dataset, table, flat) -> dict:
     """Phase 9; returns K1's launches on the phase's main paths."""
     t0 = time.perf_counter()
     loader = native_loader(workdir, dataset)
-    replay = replay_check(workdir)
     epochs, streamed = streamed_epochs(workdir, config, store, dataset, table)
     fold = fold_mc_check(workdir, config, store, dataset, table, flat)
     serving = serve_from_trainer(workdir, streamed)
     emit({"streaming_charades": {
-        "card": CARD[0], "native_loader": loader, "replay": replay, "train": epochs,
+        "card": CARD[0], "native_loader": loader,
+        "replay": "the streaming_charades_replay record (its worker runs beside "
+                  "loop_charades (c) and (d))", "train": epochs,
         "fold_mc": fold, "serve_from_trainer": serving,
         "reduced": {"train": f"12,408 queries -> {CUT_QUERIES}, 50 epochs -> 1 a run",
-                    "fold_mc": f"12,408 queries -> {FOLD_BATCHES * 96}",
-                    "replay": f"{RESUME_DATA['n_train']} queries, {REPLAY_EPOCHS} "
-                              "epoch"},
+                    "fold_mc": f"12,408 queries -> {FOLD_BATCHES * 96}"},
         "seconds": time.perf_counter() - t0,
         "timing": "seconds: host clock; step_ms: an epoch's train seconds over its "
                   "steps (one fetch at the epoch's end); upload_ms: one batch's "
@@ -2134,18 +2206,10 @@ def bf16_phase(workdir: str, config, store, dataset, table, f32_train: dict,
 
 
 # -- phase 11 -----------------------------------------------------------------
-# tools/synthetic_quality_comparison.py:260-261 and its schedule: 15 epochs,
-# re0 + 2 rounds, mc_droprate 0, train seed 12345
-QUALITY_DATA = dict(n_train=600, n_test=300, vdim=128, max_raw_len=64, seed=31)
-QUALITY_TRAIN = dict(TRAIN, epochs=15, mc_droprate=0.0, seed=12345)
-QUALITY_ROUNDS = 2
-# round 1's old pseudo-mIoU there (ref_initial_old in
-# results/synthetic_quality_comparison.json): the same dataset gives it
-QUALITY_OLD_MIOU = 0.5565
-# the union of the reference's and hual_tpu's pseudo-mIoU over their seeds
-# (ROADMAP.md, "Last evidence PRs"; results/synthetic_quality_comparison.json),
-# widened by 0.006, the widest across-seed spread at any round
-QUALITY_BANDS = {1: (0.568, 0.590), 2: (0.588, 0.606)}
+# (c): tools/torch_synthetic_quality_comparison.py at one of its train seeds,
+# on its dataset and schedule (COMPARISON: 600 / 300 queries, vdim 128, 15
+# epochs; re0 + 2 rounds, mc 0); its seed band and round 1's old mIoU
+QUALITY_SEED, QUALITY_ROUNDS = 12345, 2
 
 
 def loop_tree(workdir: str, config) -> str:
@@ -2285,98 +2349,145 @@ def full_width_round(workdir: str, config, data: str, warm: dict) -> dict:
         "re0_pickle": "the train phase's model, MC sweep at 0.5 (fused)"}}
 
 
-def quality_loop(workdir: str) -> dict:
-    """(c) re0 train and infer through the CLI, then orchestrate.main for 2
-    rounds, on tools/synthetic_quality_comparison.py's dataset and schedule;
-    the pseudo-mIoU of each round against hual_tpu's and the reference's
-    seed band."""
-    sys.path.insert(0, os.path.join(ROOT, "tools"))
-    from make_synthetic_data import make_dataset
+def printed_launches(stdout: str) -> list[dict]:
+    """The ``{"launches": ...}`` lines a tool printed."""
+    return [json.loads(line) for line in stdout.splitlines()
+            if line.startswith('{"launches"')]
 
+
+def quality_loop(workdir: str) -> tuple[dict, str]:
+    """(c) tools/torch_synthetic_quality_comparison.py ``--seeds 12345`` in
+    its own process, at the tool's dataset and full schedule (re0 train and
+    infer, then 2 rounds, through ``run_loop``): exit 0, round 1's old
+    pseudo-mIoU 0.5565 (the same dataset), each round's pseudo-mIoU inside
+    ``hual_tpu``'s and the reference's seed band, K1 and K2 launches equal
+    to the epochs' steps and batches, no bf16 K2.  Returns its record and
+    the seed's tree."""
     root = os.path.join(workdir, "quality")
-    make_dataset(root, task="charades", **QUALITY_DATA)
-    base = Config.from_dict({
-        "task": "charades",
-        "paths": {"ckpt_dir": "./ckpt", "cache_dir": "./data_pkl/",
-                  "feature_path": "./data/features/charades_i3d",
-                  "glove_path": "./data/glove/glove.840B.300d.txt",
-                  "train_path": "./data/charades_gt/train.json",
-                  "test_path": "./data/charades_gt/test.json"},
-        "train": dict(QUALITY_TRAIN, sweep_backend="fused"),
-        "model": dict(CHARADES, vdim=QUALITY_DATA["vdim"], span_decode="pallas")})
-    base_path = os.path.join(root, "configs", "charades", "SeqPAN.yaml")
-    re0_path = os.path.join(root, "configs", "charades", "SeqPAN_re0.yaml")
-    base.save(base_path)
-    base.derive_round(0).save(re0_path)
-    here = os.getcwd()
-    os.chdir(root)
-    try:
-        reset_launches()   # main path starts
-        t0 = time.perf_counter()
-        check(cli.main(["--config", re0_path, "--mode", "train", "--suffix", "re0"]) == 0
-              and cli.main(["--config", re0_path, "--mode", "infer_trainset",
-                            "--suffix", "re0"]) == 0, "the re0 CLI runs failed")
-        re0_s = time.perf_counter() - t0
-        check(orchestrate.main(["charades", "--config", base_path,
-                                "--rounds", str(QUALITY_ROUNDS)]) == 0, "orchestrate.main")
-        seconds = time.perf_counter() - t0
-        launches = launch_counts()                                 # main path ends
-        with open(os.path.join("results", "charades", "rounds_summary.json")) as f:
-            summary = json.load(f)
-        with open(os.path.join("logs", "charades", "metrics_re0.jsonl")) as f:
-            re0_best = [json.loads(line) for line in f][-1]
-    finally:
-        os.chdir(here)
-    n_train, n_test = QUALITY_DATA["n_train"], QUALITY_DATA["n_test"]
-    runs, epochs = 1 + QUALITY_ROUNDS, QUALITY_TRAIN["epochs"]
+    os.makedirs(root)
+    args = ["--seeds", str(QUALITY_SEED), "--rounds", str(QUALITY_ROUNDS)]
+    [(*_, out, seconds, log)] = run_together(
+        root, [("synthetic_quality_comparison", args, True, ())])
+    with open(out) as f:
+        res = json.load(f)
+    launches = res["launches"]          # main path: the tool's loop
+    check(printed_launches(log) == [{"launches": launches}],
+          f"quality loop: printed {printed_launches(log)}")
+    n_train, n_test, epochs = (COMPARISON[k] for k in ("n_train", "n_test", "epochs"))
+    runs = 1 + QUALITY_ROUNDS
     test_batches, infer_batches = math.ceil(n_test / 96), math.ceil(n_train / 96)
     want = {"span_decode": runs * (epochs * (math.ceil(n_train / 16) + test_batches)
                                    + infer_batches),
             "fused_forward": runs * (epochs * test_batches + infer_batches),
             "fused_forward_bf16": 0}
     check(launches == want, f"quality loop: launches {launches}, want {want}")
-    check([h["round"] for h in summary] == [1, 2], f"rounds {summary}")
-    old = summary[0]["label_stats"]["old_miou"]
+    band, seed = res["seed_band"], str(QUALITY_SEED)
+    check(band["checked"], "quality loop: not the comparison's dataset and schedule")
+    old = band["old_miou_round1"][seed]
     check(round(old, 4) == QUALITY_OLD_MIOU,
           f"round 1's old pseudo-mIoU {old}: not the comparison's dataset")
-    pseudo = {h["round"]: h["label_stats"]["new_miou"] for h in summary}
+    pseudo = dict(enumerate(band["pseudo_miou"][seed], start=1))
+    check(sorted(pseudo) == list(range(1, QUALITY_ROUNDS + 1)), f"rounds {pseudo}")
     for r, (lo, hi) in QUALITY_BANDS.items():
         check(lo <= pseudo[r] <= hi,
               f"round {r}: pseudo-mIoU {pseudo[r]} outside the seed band [{lo}, {hi}]")
-    with open(os.path.join(ROOT, "results", "synthetic_quality_comparison.json")) as f:
-        recorded = json.load(f)
     return {
-        "dataset": QUALITY_DATA, "config": dict(QUALITY_TRAIN, rounds=QUALITY_ROUNDS,
-                                                vdim=QUALITY_DATA["vdim"]),
-        "seconds": seconds, "re0_seconds": re0_s, "launches": launches,
-        "old_miou_round1": old, "pseudo_miou": pseudo, "bands": QUALITY_BANDS,
-        "best_test": {0: re0_best["test_metrics"],
-                      **{h["round"]: h["best"]["test_metrics"] for h in summary}},
-        "hual_tpu_best_test": {o["train_seed"]: o["rounds"] for o in recorded["ours"]},
-        "hual_tpu_pseudo_miou": recorded["label_quality"]["rounds"],
+        "tool": "tools/torch_synthetic_quality_comparison.py",
+        "dataset": COMPARISON, "seed": QUALITY_SEED, "rounds": QUALITY_ROUNDS,
+        "seconds": seconds, "loop_minutes": res["ours"][0]["wall_min"],
+        "launches": launches, "old_miou_round1": old, "pseudo_miou": pseudo,
+        "bands": QUALITY_BANDS,
+        "best_test": res["ours"][0]["rounds"],
+        "hual_tpu_best_test": {o["train_seed"]: o["rounds"] for o in res["hual_tpu_ours"]},
+        "label_quality": res["label_quality"]["rounds"],
         "note": "best test R@1 at 300 test queries is training noise: printed, "
-                "not checked"}
+                "not checked; seconds: the tool's process, start-up included"}, \
+        os.path.join(root, "synthetic_quality_comparison", f"ours_{QUALITY_SEED}")
 
 
-def loop_phase(workdir: str, config, warm: dict) -> dict:
-    """Phase 11; returns the loop's launch counts."""
+def cli_loop(tree: str) -> dict:
+    """(d) the command lines on the quality tool's seed tree, in this
+    process: ``cli.main --mode infer_trainset`` from the tool's re0
+    checkpoint, then ``orchestrate.main --rounds 1`` on the tool's config
+    (argparse, ``init_distributed``, the Trainer built from the config
+    alone, no warm start): round 1's old pseudo-mIoU 0.5565, its new one
+    inside round 1's band, K1 and K2 launches equal to the batches and
+    steps run, no bf16 K2."""
+    base_path = os.path.join("configs", "charades", "SeqPAN.yaml")
+    re0_path = os.path.join("configs", "charades", "SeqPAN_re0.yaml")
+    pickle_path = os.path.join("results", "charades", "re0.pkl")
+    here = os.getcwd()
+    os.chdir(tree)
+    try:
+        Config.load(base_path).derive_round(0).save(re0_path)
+        with open(pickle_path, "rb") as f:
+            tool_pickle = f.read()
+        reset_launches()   # main path starts
+        t0 = time.perf_counter()
+        check(cli.main(["--config", re0_path, "--mode", "infer_trainset",
+                        "--suffix", "re0"]) == 0, "cli.main --mode infer_trainset failed")
+        infer_s = time.perf_counter() - t0
+        check(orchestrate.main(["charades", "--config", base_path, "--rounds", "1"]) == 0,
+              "orchestrate.main failed")
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()                                 # main path ends
+        with open(pickle_path, "rb") as f:
+            same_pickle = f.read() == tool_pickle
+        with open(os.path.join("results", "charades", "rounds_summary.json")) as f:
+            [h] = json.load(f)
+    finally:
+        os.chdir(here)
+    n_train, n_test, epochs = (COMPARISON[k] for k in ("n_train", "n_test", "epochs"))
+    test_batches, infer_batches = math.ceil(n_test / 96), math.ceil(n_train / 96)
+    want = {"span_decode": 2 * infer_batches + epochs * (math.ceil(n_train / 16)
+                                                         + test_batches),
+            "fused_forward": 2 * infer_batches + epochs * test_batches,
+            "fused_forward_bf16": 0}
+    check(launches == want, f"cli loop: launches {launches}, want {want}")
+    old, new = h["label_stats"]["old_miou"], h["label_stats"]["new_miou"]
+    lo, hi = QUALITY_BANDS[1]
+    check(h["round"] == 1 and round(old, 4) == QUALITY_OLD_MIOU and lo <= new <= hi,
+          f"cli loop: round {h['round']}: old pseudo-mIoU {old}, new {new}, "
+          f"band [{lo}, {hi}]")
+    return {"seconds": seconds, "infer_seconds": infer_s, "launches": launches,
+            "old_miou_round1": old, "pseudo_miou_round1": new,
+            "best_test": h["best"]["test_metrics"],
+            "re0_pickle_equal_to_the_tools": same_pickle,
+            "path": "cli.main --mode infer_trainset --suffix re0, then orchestrate.main "
+                    "charades --rounds 1, on (c)'s seed tree"}
+
+
+def loop_phase(workdir: str, config, warm: dict, store, dataset) -> tuple[dict, Worker]:
+    """Phase 11; returns the loop's launch counts and the graphs worker.
+    The two bit-equality workers, the streaming replay and graphs_charades'
+    (a)-(c), run beside (c) and (d), whose times no metric reads."""
     data = loop_tree(workdir, config)
     full = full_width_round(workdir, config, data, warm)
-    quality = quality_loop(workdir)
+    graphs = start_graphs_worker(workdir, config, store, dataset)
+    replay = start_replay(workdir)
+    quality, tree = quality_loop(workdir)
+    cli_run = cli_loop(tree)
+    emit({"streaming_charades_replay": {
+        "card": CARD[0], **replay_check(replay),
+        "reduced": {"replay": f"512 -> {RESUME_DATA['n_train']} queries, "
+                              f"{REPLAY_EPOCHS} epoch"}}})
     emit({"loop_charades": {
         "card": CARD[0], "reduced": {"epochs": "50 -> 1 (full-width round)"},
-        **full, "quality": quality,
+        **full, "quality": quality, "cli": cli_run,
         "timing": "seconds: host clock; stages: host clock around the label "
                   "update, Trainer.train() and infer_trainset() of the round "
                   "(each ending in a host fetch or the pickle write)"}})
     return {k: full["round"]["launches"][k] + quality["launches"][k]
-            for k in ("span_decode", "fused_forward")}
+            + cli_run["launches"][k] for k in ("span_decode", "fused_forward")}, graphs
 
 
 # -- phase 12 -----------------------------------------------------------------
-# (a)'s train set: 50 full batches of 16 (replayed) and a ragged one of 5
+# (a)'s train set: 25 full batches of 16 (replayed) and a ragged one of 5
 # (the eager step after the replays)
 GRAPH_QUERIES = CUT_QUERIES + 5
+# the MC sweep graphed and eager in turns: 20 of the train split's 130
+# batches of 96 (train_charades (e) sweeps all of them)
+GRAPH_MC_QUERIES = 20 * 96
 # (b)'s Trainers: train options on train_config's (fused sweeps); test() runs
 # on those at mc 0, infer_trainset() on all
 GRAPH_SWEEPS = {"flax": dict(sweep_backend="flax"), "fused": {},
@@ -2602,23 +2713,22 @@ def graphs_worker(root: str) -> None:
           "deterministic": "runtime.debug.enable_deterministic() before CUDA started"})
 
 
-def graphs_phase(workdir: str, config, store, dataset, table) -> dict:
-    """Phase 12; returns the K1/K2 launches of its graphed main paths."""
-    t_phase = time.perf_counter()
+def start_graphs_worker(workdir: str, config, store, dataset) -> Worker:
+    """(a)-(c)'s fresh deterministic process (``--graphs-worker``) on the
+    Sweep/Train cell's table and dataset, pickled to ``graphs/world.pkl``;
+    :func:`graphs_phase` reads it."""
     root = os.path.join(workdir, "graphs")
     os.makedirs(root)
-    world = os.path.join(root, "world.pkl")
-    with open(world, "wb") as f:
+    with open(os.path.join(root, "world.pkl"), "wb") as f:
         pickle.dump((config, store, dataset), f, protocol=pickle.HIGHEST_PROTOCOL)
-    env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--graphs-worker",
-                           root], capture_output=True, text=True, env=env, timeout=600)
-    worker_s = time.perf_counter() - t0
-    os.remove(world)
-    check(proc.returncode == 0, f"graphs worker exited {proc.returncode}:\n"
-                                f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-    bit_equal = json.loads(proc.stdout.strip().splitlines()[-1])
+    return Worker("graphs", root)
+
+
+def graphs_phase(workdir: str, config, store, dataset, table, worker: Worker) -> dict:
+    """Phase 12; returns the K1/K2 launches of its graphed main paths."""
+    t_phase = time.perf_counter()
+    bit_equal, worker_s = worker.result()
+    os.remove(os.path.join(workdir, "graphs", "world.pkl"))
 
     # outside deterministic mode, on the Train cell: one epoch through
     # train(), then steps and sweeps graphed and eager in turns
@@ -2696,9 +2806,11 @@ def graphs_phase(workdir: str, config, store, dataset, table) -> dict:
     flat = to_jax_params(tr.model)
     tr.close()
 
-    # the MC sweep at mc 0.5 over the whole train split (fused), in turns
+    # the MC sweep at mc 0.5 over GRAPH_MC_QUERIES of the train split (fused),
+    # in turns
     mcfg = train_config(config, "", mc_droprate=0.5)
-    mc = Trainer(mcfg, dataset, store, logger=log, device_features=table, device=DEVICE)
+    mc = Trainer(mcfg, dict(dataset, train_set=dataset["train_set"][:GRAPH_MC_QUERIES]),
+                 store, logger=log, device_features=table, device=DEVICE)
     mc.load_params(flat)
     mc_cache, mc_s = mc._graphs, {"graphed": [], "eager": []}
     n_infer = math.ceil(len(mc.train_set) / mcfg.infer_batch_size)
@@ -2714,15 +2826,18 @@ def graphs_phase(workdir: str, config, store, dataset, table) -> dict:
     captures += mc_cache.stats()
     mc.close()
     emit({"graphs_charades": {
-        "card": CARD[0], "bit_equal_worker": bit_equal, "worker_seconds": worker_s,
+        "card": CARD[0], "bit_equal_worker": bit_equal,
+        "worker_seconds_beside_loop": worker_s,
         "epoch": {"steps": n_steps, "test_batches": n_test, "seconds": epoch_s,
                   **tr.last_epoch_wall, "launches": epoch_launches},
         "step_ms_in_turns": step_ms, "graphed_epoch_step_ms": graphed_100,
         "profile_graphed_step": profile, "profile_graphed_test_sweep": test_profile,
         "captures": captures, "test_sweep_seconds_in_turns": test_s,
-        "mc_sweep_seconds_in_turns": mc_s, "mc_sweep_batches": n_infer,
+        "mc_sweep_cut_seconds_in_turns": mc_s, "mc_sweep_queries": len(mc.train_set),
+        "mc_sweep_batches": n_infer,
         "reduced": {"train": f"12,408 queries -> {TRAIN_QUERIES} (worker: "
-                             f"{GRAPH_QUERIES}), 50 epochs -> 1"},
+                             f"{GRAPH_QUERIES}), 50 epochs -> 1",
+                    "mc_sweep": f"12,408 queries -> {GRAPH_MC_QUERIES}"},
         "seconds": time.perf_counter() - t_phase,
         "timing": "step_ms: host clock over 20 steps ending in a fetch of the "
                   "losses, graphed and eager in turns; graphed_epoch_step_ms: 100 "
@@ -2839,7 +2954,7 @@ def parallel_world1(root: str) -> None:
     try:
         mesh = make_mesh()
         out, tables, runs = {"mesh": repr(mesh)}, {}, {}
-        # (a) one epoch of 805 queries: 50 replayed steps and a ragged one
+        # (a) one epoch of 405 queries: 25 replayed steps and a ragged one
         for name, m in (("sharded", mesh), ("unsharded", None)):
             tr = parallel_trainer(root, config, store, dataset, GRAPH_QUERIES, m,
                                   tables.get(name), name)
@@ -3339,10 +3454,65 @@ TOOLS = (
     ("real_assets_parity", ["--dry-run", "--n-train", "256", "--n-test", "64",
                             "--epochs", "1", "--rounds", "1"], True,
      ("table", "loop_summary")),
+    ("strategy_ablation_loop", ["--n-train", "256", "--n-test", "64", "--vdim", "256",
+                                "--epochs", "1", "--rounds", "1"], True,
+     ("workload", "variants", "total_wall_min", "bars", "card")),
+    ("mc_comparison", ["--n-train", "256", "--n-test", "64", "--epochs", "1",
+                       "--rounds", "1"], True,
+     ("config", "uncert_video_mc0", "uncert_video_mc5", "selection", "trajectories",
+      "card")),
 )
 # the tools that take a working directory
-ROOTED_TOOLS = ("bench_serve", "validate_pipeline", "full_loop_demo",
-                "real_assets_parity")
+ROOTED_TOOLS = ("synthetic_quality_comparison", "bench_serve", "validate_pipeline",
+                "full_loop_demo",
+                "real_assets_parity", "strategy_ablation_loop", "mc_comparison")
+
+
+def ablation_facts(res: dict, n: int) -> dict:
+    """torch_strategy_ablation_loop at mc 0, deterministic, on ``n`` train
+    queries, its facts computed here from its variants: round 0 bit-equal
+    in the four variants (the re0 pickle's digest and best R@1@0.7),
+    uncertainty/half and dichotomy/half the same run (every per-round
+    number), ``n_selected`` ⌈n/2⌉ for ``half`` and n for ``all``."""
+    variants = res["variants"]
+    by = {(v["point_strategy"], v["selection"]): v for v in variants}
+    uh, dh = by["uncertainty", "half"], by["dichotomy", "half"]
+    facts = {
+        "re0_shared": len({(v["re0_pickle_sha256"], v["re0_best_r1i7"])
+                           for v in variants}) == 1,
+        "uncertainty_half_equals_dichotomy_half": all(
+            uh[k] == dh[k] for k in ("pseudo_miou", "test_r1i7", "n_pos", "n_neg",
+                                     "n_selected")),
+        "n_selected_as_budgeted": all(
+            v["n_selected"] == [math.ceil(n / 2) if v["selection"] == "half" else n]
+            * len(v["pseudo_miou"]) for v in variants)}
+    check(len(by) == 4 == len(variants) and all(facts.values()),
+          f"tools: the ablation at mc 0: {facts}: {variants}")
+    return facts
+
+
+def mc_facts(res: dict, n: int) -> dict:
+    """torch_mc_comparison on ``n`` train queries: at mc 0 no model
+    uncertainty and the annotated half in dataset order; at mc 0.5 every
+    video's uncertainty nonzero and distinct, the half not in dataset
+    order."""
+    u0, u5, sel = res["uncert_video_mc0"], res["uncert_video_mc5"], res["selection"]
+    check(u0["max"] == 0.0 and u0["nonzero_frac"] == 0.0 and sel["mc0_is_dataset_order"],
+          f"tools: the MC comparison at mc 0: {u0}, {sel}")
+    check(u5["nonzero_frac"] == 1.0 and u5["n_distinct"] == n
+          and not sel["mc5_is_dataset_order"],
+          f"tools: the MC comparison at mc 0.5 over {n} videos: {u5}, {sel}")
+    return {"uncert_video_mc0": u0, "uncert_video_mc5": u5, "selection": sel}
+
+
+# the exact facts a tool's result must show at its cut
+TOOL_FACTS = {"strategy_ablation_loop": ablation_facts, "mc_comparison": mc_facts}
+# the tools that run at the same time, after the others: whole AL loops at
+# a cut, checked for their keys, launches and facts, not for times (their
+# seconds and stage times include the others' share of the card and the
+# host; the benches, whose times PERF.md reads, run alone)
+TOGETHER = ("validate_pipeline", "full_loop_demo", "real_assets_parity",
+            "strategy_ablation_loop", "mc_comparison")
 
 
 def peak_shares(result) -> list[float]:
@@ -3356,7 +3526,7 @@ def peak_shares(result) -> list[float]:
 
 
 def tools_phase(workdir: str) -> dict:
-    """Phase 15: each of the twelve tools once, in its own process, at its
+    """Phase 15: each of the fourteen tools once, in its own process, at its
     cut: ``torch_bench_span_decode`` 20 calls a decoder and 4 infer steps
     (its shapes are not cut); ``torch_bench_fused`` 3 sweeps of 7 batches of
     96 a row (21 batches, 10 sweeps); ``torch_bench_serve`` 16 single
@@ -3372,52 +3542,103 @@ def tools_phase(workdir: str) -> dict:
     pairs, 2 sweeps a row (256 to 1,024 over 4,096 pairs, 10 sweeps);
     ``torch_bench_int8_table`` 2 epochs and 2 sweeps a table (10);
     ``torch_real_assets_parity --dry-run`` 256 / 64 queries, 1 epoch, 1
-    round (48 / 16, 2 epochs).  Each must exit 0, write its JSON with the
-    expected keys, print its launches, hold no share of the peak above 1
-    and launch K1; those that run fused sweeps, and only they, must launch
-    K2.  Returns the launches of all twelve."""
+    round (48 / 16, 2 epochs); ``torch_strategy_ablation_loop`` at mc 0
+    (deterministic), 256 / 64 queries, vdim 256, 1 epoch, 1 round a variant
+    (2,000 / 600, 20 epochs, 3 rounds): :func:`ablation_facts`;
+    ``torch_mc_comparison`` 256 / 64 queries, 1 epoch, 1 round a loop
+    (2,000 / 500, 15 epochs, 3 rounds): :func:`mc_facts`.  The five loop
+    tools (validate, the full loop, the real-assets dry run, the ablation,
+    the MC comparison) run at the same time (:data:`TOGETHER`), after the
+    benches, each of which runs alone.  Each must exit 0,
+    write its JSON with the expected keys, print its launches once, hold no
+    share of the peak above 1 and launch K1; those that run fused sweeps,
+    and only they, must launch K2; none launches K2's bf16 path.  Returns
+    the launches of all fourteen."""
     t_phase = time.perf_counter()
     root = os.path.join(workdir, "tools")
     os.makedirs(root)
     total = {"span_decode": 0, "fused_forward": 0, "fused_forward_bf16": 0}
-    runs = {}
-    for name, args, with_k2, keys in TOOLS:
-        out = os.path.join(root, f"torch_{name}.json")
-        if name in ROOTED_TOOLS:
-            args = args + ["--root", os.path.join(root, name)]
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, os.path.join(ROOT, "tools", f"torch_{name}.py"),
-                               *args, "--out", out], cwd=root, capture_output=True,
-                              text=True, timeout=600)
-        seconds = time.perf_counter() - t0
-        check(proc.returncode == 0, f"tools: torch_{name} exited {proc.returncode}:\n"
-                                    f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-        with open(out) as f:
-            res = json.load(f)
-        check(all(k in res for k in keys), f"tools: torch_{name}'s JSON lacks "
-                                           f"{[k for k in keys if k not in res]}")
-        shares = peak_shares(res)
-        check(all(0.0 < x <= 1.0 for x in shares),
-              f"tools: torch_{name}'s shares of the peak {shares}")
-        n = res["launches"]
-        printed = [json.loads(line) for line in proc.stdout.splitlines()
-                   if line.startswith('{"launches"')]
-        check(printed == [{"launches": n}], f"tools: torch_{name} printed {printed}")
-        check(n["span_decode"] > 0 and (n["fused_forward"] > 0) == with_k2
-              and n["fused_forward_bf16"] == 0,
-              f"tools: torch_{name} launched {n}")
-        for k in total:
-            total[k] += n[k]
-        if name == "full_loop_demo":
-            res = {k: res[k] for k in ("times", "round_stages", "re0_launches",
-                                       "launches", "card")}
-        elif name == "real_assets_parity":
-            res = {"table": res["table"], "launches": n, "card": res["card"],
-                   "times": res["loop_summary"]["times"]}
-        runs[name] = {"arguments": args, "seconds": seconds, "result": res}
-    emit({"tools_charades": {"card": CARD[0], "runs": runs, "launches": total,
-                             "seconds": time.perf_counter() - t_phase}})
+    runs = {"runs": {}, "runs_contended": {}}
+    groups = ([[t] for t in TOOLS if t[0] not in TOGETHER]
+              + [[t for t in TOOLS if t[0] in TOGETHER]])
+    for group in groups:
+        for name, args, with_k2, keys, out, seconds, log in run_together(root, group):
+            runs["runs_contended" if name in TOGETHER else "runs"][name] = tool_checks(
+                name, args, with_k2, keys, out, seconds, log, total)
+    emit({"tools_charades": {
+        "card": CARD[0], **runs, "launches": total,
+        "runs_contended_note": "started at the same time: their seconds, stage and "
+                               "wall times include the others' share of the card and "
+                               "the host, and compare with no run made alone",
+        "seconds": time.perf_counter() - t_phase}})
     return total
+
+
+def run_together(root: str, group: list) -> list:
+    """Start each tool of ``group`` in its own process at once, its output
+    to a log file (pipes would stall one tool while the other is read), and
+    wait for all; returns per tool its name, arguments, flags, JSON path,
+    seconds and log.  A tool still running at its time limit is killed."""
+    started = []
+    try:
+        for name, args, with_k2, keys in group:
+            out = os.path.join(root, f"torch_{name}.json")
+            if name in ROOTED_TOOLS:
+                args = args + ["--root", os.path.join(root, name)]
+            log = os.path.join(root, f"torch_{name}.log")
+            with open(log, "w") as f:
+                proc = subprocess.Popen([sys.executable, os.path.join(
+                    ROOT, "tools", f"torch_{name}.py"), *args, "--out", out], cwd=root,
+                    stdout=f, stderr=subprocess.STDOUT, text=True)
+            started.append((name, args, with_k2, keys, out, log, proc, time.perf_counter()))
+        done = []
+        for name, args, with_k2, keys, out, log, proc, t0 in started:
+            code = proc.wait(timeout=600)
+            seconds = time.perf_counter() - t0
+            with open(log) as f:
+                text = f.read()
+            check(code == 0, f"tools: torch_{name} exited {code}:\n{text[-6000:]}")
+            done.append((name, args, with_k2, keys, out, seconds, text))
+        return done
+    finally:
+        for *_, proc, _ in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def tool_checks(name: str, args: list, with_k2: bool, keys: tuple, out: str,
+                seconds: float, log: str, total: dict) -> dict:
+    """A tool's JSON against its keys, its printed launches, its shares of
+    the peak, K1/K2 launched as expected and its exact facts; adds its
+    launches to ``total``; returns its record."""
+    with open(out) as f:
+        res = json.load(f)
+    check(all(k in res for k in keys), f"tools: torch_{name}'s JSON lacks "
+                                       f"{[k for k in keys if k not in res]}")
+    shares = peak_shares(res)
+    check(all(0.0 < x <= 1.0 for x in shares),
+          f"tools: torch_{name}'s shares of the peak {shares}")
+    n = res["launches"]
+    printed = printed_launches(log)
+    check(printed == [{"launches": n}], f"tools: torch_{name} printed {printed}")
+    check(n["span_decode"] > 0 and (n["fused_forward"] > 0) == with_k2
+          and n["fused_forward_bf16"] == 0,
+          f"tools: torch_{name} launched {n}")
+    for k in total:
+        total[k] += n[k]
+    if name in TOOL_FACTS:
+        res = {"facts": TOOL_FACTS[name](res, int(args[args.index("--n-train") + 1])),
+               "launches": n, "card": res["card"],
+               **{k: res[k] for k in ("variants", "total_wall_min", "bars",
+                                      "trajectories") if k in res}}
+    elif name == "full_loop_demo":
+        res = {k: res[k] for k in ("times", "round_stages", "re0_launches",
+                                   "launches", "card")}
+    elif name == "real_assets_parity":
+        res = {"table": res["table"], "launches": n, "card": res["card"],
+               "times": res["loop_summary"]["times"]}
+    return {"arguments": args, "seconds": seconds, "result": res}
 
 
 def main(argv: list[str]) -> None:
@@ -3452,7 +3673,7 @@ def main(argv: list[str]) -> None:
     k1_main = timed("span_decode", decode_phase)
     build_root = os.path.join(ROOT, "build")
     os.makedirs(build_root, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=build_root) as workdir:
+    with tempfile.TemporaryDirectory(dir=build_root) as workdir, Worker.all_stopped():
         serve_launches = timed("serve", serve_phase, workdir)
         config, store, dataset = timed("sweep_dataset", sweep_dataset, workdir,
                                        np.random.default_rng(SEED + 3))
@@ -3469,9 +3690,10 @@ def main(argv: list[str]) -> None:
         bf16_main, bf16_launches, bf16_options = timed(
             "bf16_charades", bf16_phase, workdir, config, store, dataset, table,
             f32_train, dataset["max_wlen"], resources)
-        loop_launches = timed("loop_charades", loop_phase, workdir, config, warm)
+        loop_launches, graphs_proc = timed("loop_charades", loop_phase, workdir,
+                                           config, warm, store, dataset)
         graph_launches = timed("graphs_charades", graphs_phase, workdir, config, store,
-                               dataset, table)
+                               dataset, table, graphs_proc)
         parallel_launches = timed("parallel_charades", parallel_phase, workdir, config,
                                   store, dataset)
         migrate_launches = timed("migrate_charades", migrate_phase, workdir, config,

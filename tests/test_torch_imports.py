@@ -1,7 +1,8 @@
-"""Import boundary: the port, its tools (``tools/torch_*.py``), the
-checkpoint writer the card runs (``tests/torch_tf1_bundle.py``) and
-chip_smoke.py never import JAX, flax, the JAX package or TensorFlow, so
-they run on a machine that has none of them."""
+"""Import boundary: the port, its tools (``tools/torch_*.py``) and scripts
+(``scripts/torch_*.py``), the checkpoint writer the card runs
+(``tests/torch_tf1_bundle.py``) and chip_smoke.py never import JAX, flax,
+the JAX package or TensorFlow, so they run on a machine that has none of
+them."""
 
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "hual_tpu", "tensorflow")
 def _port_files() -> list[Path]:
     return (sorted((ROOT / "hual_tpu_torch").rglob("*.py"))
             + sorted((ROOT / "tools").glob("torch_*.py"))
+            + sorted((ROOT / "scripts").glob("torch_*.py"))
             + [ROOT / "tests" / "torch_tf1_bundle.py", ROOT / "chip_smoke.py"])
 
 

@@ -26,8 +26,11 @@ import torch_bench_span_decode  # noqa: E402
 import torch_bench_step_breakdown  # noqa: E402
 import torch_bench_train_batch  # noqa: E402
 import torch_full_loop_demo  # noqa: E402
+import torch_mc_comparison  # noqa: E402
 import torch_real_assets_parity  # noqa: E402
+import torch_strategy_ablation_loop  # noqa: E402
 import torch_sweep_ablation  # noqa: E402
+import torch_synthetic_quality_comparison  # noqa: E402
 import torch_validate_pipeline  # noqa: E402
 from torch_train_helpers import one_torch_thread  # noqa: E402,F401
 
@@ -127,7 +130,9 @@ def test_full_loop_demo(tmp_path, monkeypatch):
                                   torch_full_loop_demo, torch_bench_step_breakdown,
                                   torch_bench_train_batch, torch_bench_bf16_train,
                                   torch_bench_eval_batch, torch_sweep_ablation,
-                                  torch_bench_int8_table, torch_real_assets_parity],
+                                  torch_bench_int8_table, torch_real_assets_parity,
+                                  torch_synthetic_quality_comparison,
+                                  torch_strategy_ablation_loop, torch_mc_comparison],
                          ids=lambda t: t.__name__)
 def test_tools_raise_without_a_card(tool, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -135,5 +140,6 @@ def test_tools_raise_without_a_card(tool, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tool.main(["--root", str(tmp_path / "r")] if tool in (
             torch_full_loop_demo, torch_validate_pipeline, torch_bench_serve,
-            torch_real_assets_parity) else [])
+            torch_real_assets_parity, torch_synthetic_quality_comparison,
+            torch_strategy_ablation_loop, torch_mc_comparison) else [])
     assert not os.listdir(tmp_path)

@@ -89,13 +89,15 @@ def main(argv: list[str] | None = None) -> int:
                      queries_per_video=d["queries_per_video"])
     times["datagen_s"] = time.time() - t0
 
-    return run_loop(a.root, a.task, epochs=epochs, rounds=rounds,
-                    max_vlen=d["max_vlen"], mc_droprate=a.mc_droprate,
-                    feature_dtype=a.feature_dtype, times=times,
-                    summary_name=os.path.abspath(a.out),
-                    point_strategy=a.point_strategy, selection=a.selection,
-                    train_kwargs={"sweep_backend": a.sweep_backend},
-                    device=a.device)
+    rc = run_loop(a.root, a.task, epochs=epochs, rounds=rounds,
+                  max_vlen=d["max_vlen"], mc_droprate=a.mc_droprate,
+                  feature_dtype=a.feature_dtype, times=times,
+                  summary_name=os.path.abspath(a.out),
+                  point_strategy=a.point_strategy, selection=a.selection,
+                  train_kwargs={"sweep_backend": a.sweep_backend},
+                  device=a.device)
+    print(json.dumps({"launches": launches()}), flush=True)
+    return rc
 
 
 @contextlib.contextmanager
@@ -148,7 +150,9 @@ def run_loop(root: str, task: str, epochs: int, rounds: int, max_vlen: int,
     override individual ModelConfig/TrainConfig fields;
     ``point_strategy``/``selection`` are the paper's ablation axes
     (orchestrate.run_rounds); ``summary_name`` is the summary's JSON file
-    (relative to ``root`` unless absolute)."""
+    (relative to ``root`` unless absolute).  The launch counters are reset
+    at the start, so the summary's ``launches`` are this loop's alone; the
+    caller prints its tool's one ``{"launches": ...}`` line."""
     times = {} if times is None else times
     device = str(device_of(device))
     reset_launches()
@@ -237,7 +241,6 @@ def run_loop(root: str, task: str, epochs: int, rounds: int, max_vlen: int,
     }
     if extra:
         summary.update(extra)
-    print(json.dumps({"launches": summary["launches"]}), flush=True)
     print(json.dumps(summary, indent=2, default=float), flush=True)
     os.makedirs(os.path.dirname(os.path.abspath(summary_name)), exist_ok=True)
     with open(summary_name, "w") as f:

@@ -194,8 +194,8 @@ def run_kit(root: str, task: str, resolved: dict, epochs: int, rounds: int,
             mc_droprate: float = 0.0, feature_dtype: str = "float32",
             model_kwargs: dict | None = None, train_kwargs: dict | None = None,
             dry_run: bool = False, device: str = "cuda") -> dict:
-    """Stage ``root``, run the loop on ``device`` (which prints the K1/K2
-    launches it caused), write the report to ``out`` and return it."""
+    """Stage ``root``, run the loop on ``device``, print the K1/K2
+    launches it caused, write the report to ``out`` and return it."""
     stage_root(root, task, resolved)
     summary_name = os.path.join(root, "real_assets_loop_summary.json")
     cwd = os.getcwd()
@@ -210,6 +210,7 @@ def run_kit(root: str, task: str, resolved: dict, epochs: int, rounds: int,
         os.chdir(cwd)      # run_loop works from inside root
     with open(summary_name) as f:
         summary = json.load(f)
+    print(json.dumps({"launches": summary["launches"]}), flush=True)
     table = delta_table(summary, reference_summary, bar=bar)
     report = {"task": task, "schedule": {"epochs": epochs, "rounds": rounds},
               "dry_run": dry_run, "device": summary["device"],
