@@ -51,7 +51,8 @@ line; any failure exits non-zero before the last line:
    indices differ (near-ties only), K2 and K1 launches equal to the number
    of batches, wall time and samples/s, a torch.profiler breakdown of one
    test sweep per backend with the device's idle share, and the pickle's
-   schema;
+   schema; a fused Trainer at ``max_vlen`` 128 (past K2's T limit) raises
+   ``ValueError`` from its constructor, K2's count unchanged;
 8. train_charades: on the same dataset and device table, (a) one train
    step at drop 0 on the card against the same step on the CPU, at
    Charades and at ActivityNet width: loss components, grads and parameter
@@ -1038,6 +1039,20 @@ def sweep_phase(workdir: str, config, store, dataset) -> dict:
                          "infer_samples_per_s": len(tr.train_set) / infer_s,
                          "launches": launches, "pickle": pkl}
 
+    # K2's limit is checked when a fused Trainer is built: past it (T=128),
+    # the constructor raises before any table goes up or any epoch runs
+    past, k2_before = copy.deepcopy(config), k2.fused_forward.launches
+    past.train.sweep_backend, past.model.max_vlen = "fused", 128
+    try:
+        Trainer(past, dataset, store, logger=quiet, device=DEVICE)
+        past_limit = None
+    except ValueError as e:
+        past_limit = str(e)
+    check(past_limit is not None and "T=128" in past_limit
+          and k2.fused_forward.launches == k2_before,
+          f"a fused Trainer at max_vlen 128: {past_limit!r}, K2 launches "
+          f"{k2_before} -> {k2.fused_forward.launches}")
+
     # per sample, both backends: indices and the plain (flax) logits
     diffs, outs = {}, {}
     for split in ("test", "train"):
@@ -1082,7 +1097,7 @@ def sweep_phase(workdir: str, config, store, dataset) -> dict:
         "max_wlen": dataset["max_wlen"],
         "table_gb": store.packed.nbytes / 1e9,
         "runs": runs, "backend_agreement": diffs, "pickle_schema": schema,
-        "profile_test_sweep": profiles,
+        "profile_test_sweep": profiles, "fused_trainer_past_k2_limit": past_limit,
         "timing": "seconds: host clock around Trainer.test() / infer_trainset(), "
                   "each ending in a host fetch (infer_trainset includes writing "
                   "the pickle); profile: one test() sweep under torch.profiler"}})

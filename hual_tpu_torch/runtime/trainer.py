@@ -73,6 +73,7 @@ from hual_tpu_torch.data.features import FeatureStore, quantize_features
 from hual_tpu_torch.data.loader import (EvalLoader, PackedDataset,
                                         TrainLoader, prefetch)
 from hual_tpu_torch.models import get_model_class
+from hual_tpu_torch.ops.kernels.fused_forward import check_kernel_shape
 from hual_tpu_torch.ops.optim import BertAdamW, count_params, make_optimizer
 from hual_tpu_torch.parallel import Mesh, RowShard
 from hual_tpu_torch.runtime import graphs, steps
@@ -86,6 +87,18 @@ _FEATURE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                    "int8": torch.int8}
 # (table, int8 scales or None); each a RowShard under a mesh
 _DeviceTable = tuple[Any, Optional[Any]]
+
+
+def check_fused_shape(config: Config, device: torch.device) -> None:
+    """Raises ``ValueError`` when K2 cannot take this model's sweeps on
+    ``device``: a sweep pads T to ``max_vlen`` and its W never exceeds it
+    (``data/datasets.py`` cuts words there), so the kernel's limit
+    (``check_kernel_shape``) is checked when the Trainer is built, not at
+    the first test sweep an epoch later.  The plain version on the CPU has
+    no limit, as the Pallas kernel has none."""
+    if device.type == "cuda":
+        m = config.model
+        check_kernel_shape(m.max_vlen, m.max_vlen, m.dim)
 
 
 @dataclass
@@ -118,6 +131,32 @@ class Trainer:
                                            config.suffix or "run",
                                            to_file=self.is_writer)
 
+        # residency: the device table, or host streaming when asked for or
+        # when this rank's part of the table (rows padded to the shards x T
+        # x D in the storage dtype; int8 scales not counted) is over the
+        # budget, as hual_tpu counts it per chip
+        self._feat_dtype = _FEATURE_DTYPES[config.model.feature_dtype]
+        packed = feature_store.packed
+        shards = 1 if self.mesh is None else self.mesh.size
+        self._table_shape = (packed.shape[0] + (-packed.shape[0]) % shards,
+                             *packed.shape[1:])
+        table_gb = (math.prod(self._table_shape) * self._feat_dtype.itemsize
+                    / 1e9 / shards)
+        hs = tcfg.host_streaming
+        self.host_streaming = (table_gb > tcfg.hbm_budget_gb if hs is None
+                               else bool(hs))
+        if tcfg.sweep_backend == "fused" and self.host_streaming:
+            # hual_tpu's documented fallback and warning
+            # (hual_tpu/runtime/trainer.py), kept for parity: the fused
+            # sweeps would take the streamed batches as they are
+            self.logger.warning(
+                "train.sweep_backend='fused' requires a device-resident "
+                "dataset; host-streaming mode is active, using the flax "
+                "sweep backend instead")
+        self._fused = tcfg.sweep_backend == "fused" and not self.host_streaming
+        if self._fused:
+            check_fused_shape(config, self.device)
+
         max_wlen, max_clen = dataset["max_wlen"], dataset["max_clen"]
         self.train_set = PackedDataset(dataset["train_set"], feature_store,
                                        max_wlen, max_clen)
@@ -139,20 +178,6 @@ class Trainer:
                              if self.mesh is None
                              else self.mesh.shard_vocab(vectors, self.device))
 
-        # residency: the device table, or host streaming when asked for or
-        # when this rank's part of the table (rows padded to the shards x T
-        # x D in the storage dtype; int8 scales not counted) is over the
-        # budget, as hual_tpu counts it per chip
-        self._feat_dtype = _FEATURE_DTYPES[config.model.feature_dtype]
-        packed = feature_store.packed
-        shards = 1 if self.mesh is None else self.mesh.size
-        self._table_shape = (packed.shape[0] + (-packed.shape[0]) % shards,
-                             *packed.shape[1:])
-        table_gb = (math.prod(self._table_shape) * self._feat_dtype.itemsize
-                    / 1e9 / shards)
-        hs = tcfg.host_streaming
-        self.host_streaming = (table_gb > tcfg.hbm_budget_gb if hs is None
-                               else bool(hs))
         self._device_features: Optional[_DeviceTable] = None
         self._train_data = self._test_data = self._val_data = None
         if self.host_streaming:
@@ -185,15 +210,6 @@ class Trainer:
             self._test_data = self._device_data(self.test_set)
             self._val_data = (self._device_data(self.val_set)
                               if self.val_set is not None else None)
-        if tcfg.sweep_backend == "fused" and self.host_streaming:
-            # hual_tpu's documented fallback and warning
-            # (hual_tpu/runtime/trainer.py), kept for parity: the fused
-            # sweeps would take the streamed batches as they are
-            self.logger.warning(
-                "train.sweep_backend='fused' requires a device-resident "
-                "dataset; host-streaming mode is active, using the flax "
-                "sweep backend instead")
-        self._fused = tcfg.sweep_backend == "fused" and not self.host_streaming
         # the resident loops on the card: captured CUDA graphs, built at
         # first use, kept across epochs and sweeps (None: the eager loops)
         self._graphs: Optional[graphs.Graphs] = None

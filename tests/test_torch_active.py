@@ -32,6 +32,7 @@ from hual_tpu_torch.active import renew  # noqa: E402
 from hual_tpu_torch.active import uncertainty as unc  # noqa: E402
 from hual_tpu_torch.cli import build_trainer  # noqa: E402
 from hual_tpu_torch.config import Config  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a fixture)
 
 
 def assert_same(a, b):

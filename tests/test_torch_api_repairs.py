@@ -37,6 +37,7 @@ from test_torch_api_parity import _records
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 from make_synthetic_data import make_dataset  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a fixture)
 
 # the port's modules with a hual_tpu counterpart that share public names
 MODULES = [

@@ -67,6 +67,7 @@ from hual_tpu_torch.runtime.trainer import Trainer  # noqa: E402
 from hual_tpu_torch.serve import Predictor, export_model_bundle  # noqa: E402
 from hual_tpu_torch.utils.io import load_pickle  # noqa: E402
 from hual_tpu_torch.weights import _leaves, load_jax_params, to_jax_params  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a fixture)
 
 LOGGER = logging.getLogger("test_torch_bf16")
 B, W, C, V = 5, 6, 5, 24

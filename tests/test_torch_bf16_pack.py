@@ -26,6 +26,7 @@ import torch
 from hual_tpu_torch.models.seqpan import SeqPAN
 from hual_tpu_torch.ops import fused_forward as ff
 from hual_tpu_torch.ops.kernels import fused_forward as k2
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a fixture)
 
 
 def _model(D: int, L: int, seed: int = 1) -> SeqPAN:

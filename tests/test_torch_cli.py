@@ -24,6 +24,7 @@ from hual_tpu_torch.config import (Config, LossConfig, ModelConfig,  # noqa: E40
                                    PathsConfig, TrainConfig)
 from hual_tpu_torch.utils.io import load_pickle  # noqa: E402
 from hual_tpu_torch.weights import to_jax_params  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a fixture)
 
 
 @pytest.fixture(scope="module")

@@ -30,6 +30,7 @@ from hual_tpu_torch.ops.fused_forward import (FRONT_MODULES, forward_math,
                                               seqpan_forward_fused)
 from hual_tpu_torch.ops.kernels import fused_forward as k2
 from hual_tpu_torch.weights import load_jax_params, to_jax_params
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a fixture)
 
 B, W, C, V = 5, 6, 5, 24
 CASES = {

@@ -1,0 +1,18 @@
+"""K2's f64 path, emulated on the CPU, against its plain version in f64
+(``tests/torch_k2_emulation.py``)."""
+
+from __future__ import annotations
+
+import pytest
+
+from torch_k2_emulation import emu, lib  # noqa: F401  (a fixture)
+from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+
+@pytest.mark.parametrize("B,T,W,D,H", [(2, 17, 5, 36, 4), (1, 49, 13, 32, 4),
+                                       (3, 1, 1, 32, 4)])
+def test_f64_path_equals_its_plain_version(lib, B, T, W, D, H):
+    res = emu.compare(lib, B, T, W, D, H, 1, mxu_bf16=False)
+    for name, r in res.items():
+        assert r["finite"], name
+        assert r["exact"] <= 1e-5, (name, r)

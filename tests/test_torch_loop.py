@@ -43,6 +43,7 @@ from hual_tpu.config import Config as JaxConfig  # noqa: E402
 from hual_tpu.serve import _flatten_params, _unflatten_like  # noqa: E402
 from hual_tpu_torch.config import Config  # noqa: E402
 from hual_tpu_torch.utils.io import load_json, load_pickle  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a fixture)
 
 CONFIG = {
     "task": "charades",

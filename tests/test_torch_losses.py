@@ -34,6 +34,7 @@ from hual_tpu_torch.data.labels_device import make_span_labels_device
 from hual_tpu_torch.models import layers
 from hual_tpu_torch.models.seqpan import SeqPAN, seqpan_loss
 from hual_tpu_torch.weights import load_jax_params
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a fixture)
 
 B, T, W, C, V = 6, 12, 5, 4, 16
 WIDTHS = dict(dim=16, num_heads=2, attn_layer=1, max_vlen=T, word_dim=10,

@@ -33,6 +33,7 @@ from hual_tpu_torch.ops import gumbel
 from hual_tpu_torch.ops.optim import (clip_by_global_norm, count_params,
                                       decay_mask, make_optimizer)
 from hual_tpu_torch.weights import _leaves, to_jax_params
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a fixture)
 
 CHARADES = dict(dim=128, num_heads=8, attn_layer=2, max_vlen=64, word_dim=300,
                 char_dim=50, num_chars=60)

@@ -28,6 +28,7 @@ import hual_tpu_torch.orchestrate as orch  # noqa: E402
 from hual_tpu_torch.config import (Config, ModelConfig, PathsConfig,  # noqa: E402
                                    TrainConfig)
 from hual_tpu_torch.utils.io import load_json, save_pickle  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a fixture)
 
 TEST_METRICS = {"r1i3": 30.0, "r1i5": 20.0, "r1i7": 10.0, "miou": 25.0}
 

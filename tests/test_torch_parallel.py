@@ -37,6 +37,7 @@ from hual_tpu_torch.ops.optim import make_optimizer
 from hual_tpu_torch.parallel import Mesh, RowShard, make_mesh, sum_over
 from hual_tpu_torch.runtime import steps
 from hual_tpu_torch.weights import load_jax_params, to_jax_params
+from torch_threads import one_torch_thread  # noqa: F401  (a fixture, re-exported)
 
 B, T, W, C, V, N, ROWS = 16, 8, 6, 4, 16, 20, 13
 WIDTHS = dict(vdim=V, dim=16, num_heads=2, attn_layer=1, max_vlen=T, word_dim=32,
@@ -246,14 +247,6 @@ def model_axis_ranks(rank: int) -> dict:
 
 
 # -- fixtures -------------------------------------------------------------------------
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def world2(tmp_path_factory):
     """Both ranks' results on the (data=2, model=1) layout."""

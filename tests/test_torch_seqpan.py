@@ -22,6 +22,7 @@ from hual_tpu.serve import _flatten_params
 from hual_tpu_torch.models.seqpan import SeqPAN
 from hual_tpu_torch.ops.decode import span_decode
 from hual_tpu_torch.weights import load_jax_params
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a fixture)
 
 CASES = {
     # name: model widths, (B, W, C) of the batch

@@ -43,6 +43,7 @@ from hual_tpu_torch.data.features import FeatureStore as PortFeatureStore  # noq
 from hual_tpu_torch.models.seqpan import SeqPAN  # noqa: E402
 from hual_tpu_torch.runtime import steps  # noqa: E402
 from hual_tpu_torch.runtime.trainer import Trainer as PortTrainer  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a fixture)
 
 BATCH = 4
 

@@ -22,6 +22,7 @@ from hual_tpu_torch.ops.decode import span_decode
 from hual_tpu_torch.ops.kernels import span_decode as kernel
 from hual_tpu_torch.ops.masking import (attention_bias, mask_logits,
                                         sequence_mask)
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a fixture)
 
 
 def _inputs(B: int, T: int, seed: int):

@@ -30,6 +30,7 @@ from hual_tpu_torch.models.seqpan import SeqPAN
 from hual_tpu_torch.ops.masking import sequence_mask
 from hual_tpu_torch.runtime import steps
 from hual_tpu_torch.weights import load_jax_params
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a fixture)
 
 N, T, W, C, V, BS = 10, 8, 5, 4, 16, 4
 WIDTHS = dict(dim=32, num_heads=4, attn_layer=1, max_vlen=T, word_dim=12,

@@ -46,6 +46,7 @@ from hual_tpu_torch.models.seqpan import SeqPAN  # noqa: E402
 from hual_tpu_torch.runtime.trainer import Trainer  # noqa: E402
 from hual_tpu_torch.utils import tf1_port as port  # noqa: E402
 from hual_tpu_torch.weights import load_jax_params, to_jax_params  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a fixture)
 
 TINY = dict(vdim=16, dim=16, num_heads=2, attn_layer=1, max_vlen=16,
             word_dim=300, char_dim=8)

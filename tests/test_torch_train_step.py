@@ -39,6 +39,7 @@ from hual_tpu_torch.models.seqpan import SeqPAN
 from hual_tpu_torch.ops.optim import make_optimizer
 from hual_tpu_torch.runtime import steps
 from hual_tpu_torch.weights import _leaves, load_jax_params, to_jax_params
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a fixture)
 
 SHAPES = {
     "charades": dict(T=16, W=6, C=4, V=32, char_dim=4),

@@ -18,6 +18,7 @@ from hual_tpu.models.seqpan import SeqPAN as JaxSeqPAN
 from hual_tpu.serve import _flatten_params
 from hual_tpu_torch.models.seqpan import SeqPAN
 from hual_tpu_torch.weights import load_jax_params, to_jax_params
+from torch_threads import one_torch_thread  # noqa: E402,F401  (a fixture)
 
 SMALL = dict(vdim=32, dim=16, num_heads=2, attn_layer=2, max_vlen=16,
              word_dim=24, char_dim=8, num_chars=30)

@@ -27,20 +27,9 @@ from hual_tpu_torch.config import Config  # noqa: E402
 from hual_tpu_torch.data.datasets import gen_or_load_dataset  # noqa: E402
 from hual_tpu_torch.data.features import FeatureStore  # noqa: E402
 from hual_tpu_torch.runtime.trainer import Trainer  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401  (re-exported)
 
 LOGGER = logging.getLogger("test_torch_train")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for the module (restored after).  At these sizes
-    a parallel region saves nothing, and when xdist's workers share the
-    cores the thread pools' barriers stall: the folded MC passes took 3 s
-    alone and 659 s in a six-worker run."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def train_config(root: str, ckpt: str, **train) -> Config:

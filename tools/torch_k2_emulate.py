@@ -33,6 +33,7 @@ above only statistically (S near 1).
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -401,25 +402,28 @@ def emulated_source(src: str) -> str:
 
 def build(out_dir: str = OUT, src_path: str = SRC) -> str:
     """Compile the emulated source with g++ into ``out_dir`` (once per
-    source); returns the library's path."""
+    source: processes that ask at the same time wait on a lock there for
+    the first one's build); returns the library's path."""
     src = emulated_source(open(src_path).read())
     digest = hashlib.sha256((src + RUNTIME_H + PTX_H).encode()).hexdigest()[:16]
     os.makedirs(out_dir, exist_ok=True)
     lib = os.path.join(out_dir, f"libk2_emulated-{digest}.so")
-    if os.path.exists(lib):
-        return lib
-    for name, text in (("cuda_runtime.h", RUNTIME_H), ("emu_ptx.h", PTX_H),
-                       ("k2_emulated.cpp", src)):
-        with open(os.path.join(out_dir, name), "w") as f:
-            f.write(text)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    proc = subprocess.run(["g++", "-std=c++20", "-O2", "-pthread", "-shared", "-fPIC",
-                           "-w", "-I", out_dir, "-o", tmp,
-                           os.path.join(out_dir, "k2_emulated.cpp")],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"torch_k2_emulate: g++ failed:\n{proc.stderr[-6000:]}")
-    os.replace(tmp, lib)
+    with open(os.path.join(out_dir, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(lib):
+            return lib
+        for name, text in (("cuda_runtime.h", RUNTIME_H), ("emu_ptx.h", PTX_H),
+                           ("k2_emulated.cpp", src)):
+            with open(os.path.join(out_dir, name), "w") as f:
+                f.write(text)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        proc = subprocess.run(["g++", "-std=c++20", "-O2", "-pthread", "-shared", "-fPIC",
+                               "-w", "-I", out_dir, "-o", tmp,
+                               os.path.join(out_dir, "k2_emulated.cpp")],
+                              capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"torch_k2_emulate: g++ failed:\n{proc.stderr[-6000:]}")
+        os.replace(tmp, lib)
     return lib
 
 
