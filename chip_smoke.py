@@ -44,15 +44,21 @@ line; any failure exits non-zero before the last line:
    within bf16_charades's band (B); the f32 plain
    version's own error; CUDA-event and in-kernel times, the plain version's
    time (f32) and the FLOP bound; threads and dynamic shared memory per
-   block and workspace bytes per sample;
+   block and workspace bytes per sample; and the same at
+   ``K2_TILED_SHAPES``, past the shape limit K2 once had: T=128 and 256, W=128,
+   D=256, D=90 (six heads of 15), each with a seeded model of its own
+   ``max_vlen`` and D, its routes and the kernel build that ran it
+   (resident or general);
 7. sweep_charades: Trainer.test() and Trainer.infer_trainset() at batch 96
    (span_decode: pallas) with sweep_backend flax and fused on seeded random
    weights at Charades width: R@1 and mIoU of both, the samples whose
    indices differ (near-ties only), K2 and K1 launches equal to the number
    of batches, wall time and samples/s, a torch.profiler breakdown of one
    test sweep per backend with the device's idle share, and the pickle's
-   schema; a fused Trainer at ``max_vlen`` 128 (past K2's T limit) raises
-   ``ValueError`` from its constructor, K2's count unchanged;
+   schema; a fused Trainer at ``max_vlen`` 128 (past the T limit K2 once
+   had) against a flax one on the same weights, 384 test queries of
+   up to 128 clips: equal R@1 and mIoU (spans differing only on near-ties),
+   K2 launched once a batch;
 8. train_charades: on the same dataset and device table, (a) one train
    step at drop 0 on the card against the same step on the CPU, at
    Charades and at ActivityNet width: loss components, grads and parameter
@@ -94,7 +100,8 @@ line; any failure exits non-zero before the last line:
    path;
 10. bf16_charades, K2's ``mxu_bf16`` path and the bf16 options: (a) K2 with
    bf16 products against its plain version in f64 without rounding, at
-   (96,64,13), (32,100,30) and (3,17,5): (B) |x - f64| <= 0.05 + 0.03 *
+   (96,64,13), (32,100,30), (3,17,5) and ``K2_TILED_SHAPES``: (B) |x - f64|
+   <= 0.05 + 0.03 *
    max|f64| on logits and <= max(0.05, 1.5 x the plain bf16 version's own
    distance) on match scores, (S) rms(x - f64) /
    rms(plain bf16 - f64) in [0.5, 2], (R) rms(x - f64) > 100 * rms(K2 f32 -
@@ -186,7 +193,8 @@ line; any failure exits non-zero before the last line:
    bench_fused,bench_serve,validate_pipeline,full_loop_demo,
    bench_step_breakdown,bench_train_batch,bench_bf16_train,bench_eval_batch,
    sweep_ablation,bench_int8_table,real_assets_parity,strategy_ablation_loop,
-   mc_comparison}.py``) in its own process at a cut (``tools_phase``): exit
+   mc_comparison}.py``) in its own process at a cut, in groups that start
+   together (``BENCH_GROUPS``, then the five loop tools; ``tools_phase``): exit
    0, its JSON's keys, its launches printed once, no share of the peak
    above 1, K1 launched in each and K2 in exactly the nine with fused
    sweeps; the strategy ablation at mc 0 (deterministic) with round 0
@@ -488,14 +496,17 @@ def build_kernels() -> None:
         check(kernels, f"{n}: no ptxas resource report")
         for k, r in kernels.items():
             check(r.get("spill_bytes", 0) == 0, f"{n}: ptxas spills in {k}: {r}")
-    dmma = sass_count("fused_forward", "DMMA")
-    check(dmma > 0, "K2's SASS holds no DMMA instruction")
-    hgmma = sass_count("fused_forward", "HGMMA")
-    check(hgmma > 0, "K2's SASS holds no HGMMA instruction (its mxu_bf16 path's "
-                     "wgmma products)")
-    hmma = sass_count("fused_forward", "HMMA")
-    check(hmma > 0, "K2's SASS holds no HMMA instruction (its mxu_bf16 path's "
-                    "mma.sync products: attention, products of up to 48 rows)")
+    # both builds of K2: the resident kernel and the general one
+    sass = {lib: {op: sass_count(lib, op) for op in ("DMMA", "HGMMA", "HMMA")}
+            for lib in ("fused_forward", "fused_forward_general")}
+    for lib, counts in sass.items():
+        check(counts["DMMA"] > 0, f"{lib}: K2's SASS holds no DMMA instruction")
+        check(counts["HGMMA"] > 0, f"{lib}: K2's SASS holds no HGMMA instruction (its "
+                                   "mxu_bf16 path's wgmma products)")
+        check(counts["HMMA"] > 0, f"{lib}: K2's SASS holds no HMMA instruction (its "
+                                  "mxu_bf16 path's mma.sync products: attention, "
+                                  "products of up to 48 rows)")
+    dmma, hgmma, hmma = (sass["fused_forward"][op] for op in ("DMMA", "HGMMA", "HMMA"))
     # the bf16 instantiation, fused_forward_kernel<true>: its registers and
     # spills (one compile) and its shared memory at T=64 and T=100
     bf16_kernel = [r for k, r in resources["fused_forward"].items()
@@ -510,6 +521,7 @@ def build_kernels() -> None:
                     "ptxas": resources, "fused_forward_sass_dmma": dmma,
                     "fused_forward_sass_hgmma": hgmma,
                     "fused_forward_sass_hmma": hmma, "fused_forward_bf16": bf16,
+                    "sass": sass,
                     "arch": build.ARCH, "nvcc_flags": list(build.NVCC_FLAGS),
                     "libraries": [os.path.relpath(build.library_path(n), ROOT)
                                   for n in names]}})
@@ -837,15 +849,15 @@ def near_ties(logits, mask, spans_a, spans_b) -> list[dict]:
     return out
 
 
-def k2_inputs(B: int, T: int, W: int, rng: np.random.Generator):
+def k2_inputs(B: int, T: int, W: int, rng: np.random.Generator, D: int = CHARADES["dim"]):
     v_len = rng.integers(1, T + 1, B)
     q_len = rng.integers(1, W + 1, B)
     v_len[0] = 1                         # a length-1 video
     q_len[min(1, B - 1)] = 1             # a query of one valid word
     if B > 2:
         v_len[2], q_len[2] = T, W
-    vf = rng.normal(size=(B, T, CHARADES["dim"])).astype(np.float32)
-    qf = rng.normal(size=(B, W, CHARADES["dim"])).astype(np.float32)
+    vf = rng.normal(size=(B, T, D)).astype(np.float32)
+    qf = rng.normal(size=(B, W, D)).astype(np.float32)
     vm = (np.arange(T)[None] < v_len[:, None]).astype(np.int32)
     qm = (np.arange(W)[None] < q_len[:, None]).astype(np.int32)
     return [torch.from_numpy(a).to(DEVICE) for a in (vf, qf, vm, qm)]
@@ -861,6 +873,45 @@ def k2_packs() -> dict[int, PackedWeights]:
                        generator=torch.Generator().manual_seed(SEED)).to(DEVICE).eval()
         packs[T] = pack_weights(model)
     return packs
+
+
+# K2 past the shape limit it once had (T, W <= 100; D <= 128, a multiple
+# of 4), on both paths: (B, T, W, D, H) at the Charades model's
+# depth (2 layers), each with a seeded model of its own max_vlen and D
+K2_TILED_SHAPES = (
+    ((32, 128, 30, 128, 8), "max_vlen 128: ActivityNet at 128 clips"),
+    ((16, 256, 40, 128, 8), "long videos, past every attention and CQ tile"),
+    ((8, 128, 128, 128, 8), "W past 100: a query as long as the video bound"),
+    ((32, 64, 13, 256, 8), "D past 128: column passes, split k, LayerNorm in chunks"),
+    ((16, 64, 13, 90, 6), "D not a multiple of 4 (hd 15): scalar tails, mma.sync only"),
+)
+
+
+def k2_tiled_pack(T: int, W: int, D: int, H: int) -> PackedWeights:
+    """K2's packed weights of a seeded random model at max_vlen max(T, W),
+    width D and H heads, Charades otherwise."""
+    model = SeqPAN(**{k: v for k, v in CHARADES.items() if k not in ("name", "max_tlen")}
+                   | {"max_vlen": max(T, W), "dim": D, "num_heads": H, "num_chars": 60},
+                   generator=torch.Generator().manual_seed(SEED + D + T)).to(DEVICE).eval()
+    return pack_weights(model)
+
+
+def k2_shapes(W: int) -> list[dict]:
+    """Every shape the K2 checks run: the sweep's (B, T, W) at Charades width
+    with the T=64 or T=100 model, then K2_TILED_SHAPES; each with its pack,
+    D, H and what it stands for."""
+    packs = k2_packs()
+    dims = dict(D=CHARADES["dim"], H=CHARADES["num_heads"])
+    # at ActivityNet width the queries take the serve phase's word bound;
+    # (3,17,5) is ragged in every tile dimension (weights of the T=64 model)
+    shapes = [dict(B=B, T=T, W=Wq, packed=packs[64 if T <= 64 else 100], **dims,
+                   what="the sweep's shape")
+              for B, T, Wq in ((96, 64, W), (8, 64, W), (5, 64, W), (1, 64, W),
+                               (32, 100, MAX_WLEN), (3, 17, 5))]
+    for (B, T, Wq, D, H), what in K2_TILED_SHAPES:
+        shapes.append(dict(B=B, T=T, W=Wq, D=D, H=H, packed=k2_tiled_pack(T, Wq, D, H),
+                           what=what))
+    return shapes
 
 
 def k2_vlen1_check(kw: dict) -> dict:
@@ -896,23 +947,15 @@ def k2_vlen1_check(kw: dict) -> dict:
 
 
 def fused_forward_phase(W: int) -> dict:
-    """K2 against its plain version on the card at the sweep's shapes."""
+    """K2 against its plain version on the card at the sweep's shapes and at
+    K2_TILED_SHAPES."""
     rng = np.random.default_rng(SEED + 2)
-    # at ActivityNet width the queries take the serve phase's word bound;
-    # (3,17,5) is ragged in every tile dimension (weights of the T=64 model)
-    shapes = ((96, 64, W), (8, 64, W), (5, 64, W), (1, 64, W), (32, 100, MAX_WLEN),
-              (3, 17, 5))
-    packs = k2_packs()
-    kw = dict(attn_layer=CHARADES["attn_layer"], num_heads=CHARADES["num_heads"],
-              tau=0.3, use_gumbel=False)
-    check(k2._library().fused_forward_max_len() == k2.MAX_LEN
-          and k2._library().fused_forward_max_dim() == k2.MAX_DIM,
-          "the wrapper's shape limit differs from the kernel's")
     rows = []
-    dims = (CHARADES["dim"], CHARADES["num_heads"])
-    for B, T, Wq in shapes:
-        packed = packs[64 if T <= 64 else 100]
-        args = k2_inputs(B, T, Wq, rng)
+    for shape in k2_shapes(W):
+        B, T, Wq, D, H, packed = (shape[k] for k in ("B", "T", "W", "D", "H", "packed"))
+        kw = dict(attn_layer=CHARADES["attn_layer"], num_heads=H, tau=0.3,
+                  use_gumbel=False)
+        args = k2_inputs(B, T, Wq, rng, D)
         got = k2.fused_forward(packed, *args, **kw)
         torch.cuda.synchronize()
         # the plain version in f64 is the reference; in f32 it is itself
@@ -926,11 +969,12 @@ def fused_forward_phase(W: int) -> dict:
         def err(outs, i):
             return (outs[i].double() - ref[i]).abs().max().item()
 
+        where = (B, T, Wq, D, H)
         logit_err, ms_err = max(err(got, 0), err(got, 1)), err(got, 2)
         check(all(torch.allclose(got[i].double(), ref[i], rtol=1e-4, atol=2e-4)
                   for i in (0, 1)),
-              f"K2 logits differ from the plain version at {(B, T, Wq)}: {logit_err}")
-        check(ms_err <= 1e-5, f"K2 match scores differ at {(B, T, Wq)}: {ms_err}")
+              f"K2 logits differ from the plain version at {where}: {logit_err}")
+        check(ms_err <= 1e-5, f"K2 match scores differ at {where}: {ms_err}")
         vm = args[2]
         ref32 = [r.float() for r in ref]
         spans = [torch.stack(k1.span_decode(s, e, vm), 1).cpu().numpy()
@@ -943,11 +987,12 @@ def fused_forward_phase(W: int) -> dict:
         plain_ms, plain_queue = device_times_ms(plain, per_round=1, rounds=10, warmup=3)
         busy = device_profile(kernel, calls=10, top=1)
         plain_busy = device_profile(plain, calls=2, top=0)
-        flops = k2_flops(B, T, Wq)
+        flops = k2_flops(B, T, Wq, D)
         n_bytes = (packed.buffer.numel() * 4 + sum(a.numel() * 4 for a in args)
                    + B * T * 6 * 4)
         t_ops, t_bytes = flops / FP32_FLOPS * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
-        rows.append({"B": B, "T": T, "W": Wq, "max_abs_err": logit_err,
+        rows.append({"B": B, "T": T, "W": Wq, "D": D, "H": H, "what": shape["what"],
+                     "max_abs_err": logit_err,
                      "match_scores_max_abs_err": ms_err, "near_ties": ties,
                      "plain_f32_max_abs_err": max(err(plain32, 0), err(plain32, 1)),
                      "plain_f32_match_scores_max_abs_err": err(plain32, 2),
@@ -959,16 +1004,16 @@ def fused_forward_phase(W: int) -> dict:
                      "flops": flops, "bytes": n_bytes,
                      "bound_ms": max(t_ops, t_bytes),
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                     "bound_share": max(t_ops, t_bytes) / ms,
                      "gflops_per_s": flops / (ms * 1e-3) / 1e9,
                      "threads_per_block": k2.threads_per_block(),
-                     "smem_bytes_per_block": k2.smem_bytes(T, Wq, *dims),
-                     "heads_per_group": k2.heads_per_group(T, Wq, *dims),
-                     "workspace_bytes_per_sample":
-                         4 * k2.workspace_floats(T, Wq, CHARADES["dim"],
-                                                 CHARADES["num_heads"])})
+                     "smem_bytes_per_block": k2.smem_bytes(T, Wq, D, H),
+                     "routes": k2.routes(T, Wq, D, H),
+                     "workspace_bytes_per_sample": 4 * k2.workspace_floats(T, Wq, D, H)})
+    kw = dict(attn_layer=CHARADES["attn_layer"], num_heads=CHARADES["num_heads"],
+              tau=0.3, use_gumbel=False)
     emit({"fused_forward": {
         "shapes": rows, "max_vlen_1": k2_vlen1_check(kw),
-        "max_len": k2.MAX_LEN, "max_dim": k2.MAX_DIM,
         "reference": "errors against the plain version in f64 on the card; "
                      "plain_ms times it in f32",
         "timing": "ms: median of 20 calls by CUDA events, queued behind a device "
@@ -998,6 +1043,68 @@ def pickle_schema(path: str, n: int, T: int) -> dict:
               f"pickle m_score in {r['vid']}")
     return {"rows": n, "keys": keys, "logits": f"float32 ({T},)",
             "m_score": f"float32 ({T}, 4)"}
+
+
+PAST_LIMIT_QUERIES = 384     # test queries of the max_vlen-128 Trainers
+
+
+def fused_trainer_past_old_limit(config, store, dataset, quiet) -> dict:
+    """A fused Trainer at max_vlen 128 (K2 once took T and W up to 100
+    only), D 128, against a flax Trainer on the same weights: test() over
+    PAST_LIMIT_QUERIES test queries must give the same R@1 and mIoU (spans
+    may differ only on near-ties), K2 launched once a batch.  The videos
+    are the sweep set's, each clip twice (up to 128 clips), their spans
+    doubled with them."""
+    sub = {**dataset, "train_set": dataset["train_set"][:96],
+           "test_set": [dict(r, v_len=2 * r["v_len"], s_ind=2 * r["s_ind"],
+                             e_ind=2 * r["e_ind"] + 1)
+                        for r in dataset["test_set"][:PAST_LIMIT_QUERIES]]}
+    vids = {r["vid"] for r in sub["train_set"] + sub["test_set"]}
+    rows = {v: store.vid_index[v] for v in vids}
+    store128 = FeatureStore({v: np.repeat(store.packed[i, :store.lengths[i]], 2, axis=0)
+                             for v, i in rows.items()}, 128)
+    runs, outs, state = {}, {}, None
+    for backend in ("flax", "fused"):
+        cfg = copy.deepcopy(config)
+        cfg.model.max_vlen, cfg.train.sweep_backend = 128, backend
+        tr = Trainer(cfg, sub, store128, logger=quiet, device=DEVICE)
+        tr.init_state()
+        if state is None:
+            state = {k: v.clone() for k, v in tr.model.state_dict().items()}
+        else:
+            tr.model.load_state_dict(state)
+        tr.test()                                   # warm-up
+        reset_launches()   # main path starts
+        metrics = tr.test()
+        launches = k2.fused_forward.launches       # main path ends
+        pairs = list(EvalLoader(tr.test_set, cfg.eval_batch_size, pad_to_batch=True)
+                     .index_iter())
+        sels = torch.from_numpy(np.stack([sel for sel, _ in pairs])).to(DEVICE)
+        sweep = steps.fused_infer_sweep if backend == "fused" else steps.infer_sweep
+        o = sweep(tr.model, steps.resident_batches(tr._test_data, sels,
+                                                   [n for _, n in pairs]),
+                  tr.word_vectors)
+        outs[backend] = {k: v.cpu().numpy() for k, v in o.items()}
+        runs[backend] = {"test": metrics, "fused_forward_launches": launches,
+                         "batches": len(pairs)}
+        tr.close()
+    f, x = outs["fused"], outs["flax"]
+    mask = (np.arange(128)[None] < tr.test_set.v_len[:, None]).astype(np.int32)
+    ties = near_ties([x["start_logits"], x["end_logits"]], mask,
+                     np.stack([f["start_index"], f["end_index"]], 1),
+                     np.stack([x["start_index"], x["end_index"]], 1))
+    check(runs["fused"]["fused_forward_launches"] == runs["fused"]["batches"]
+          and runs["flax"]["fused_forward_launches"] == 0,
+          f"K2 launches at max_vlen 128: {runs}")
+    if not ties:
+        check(runs["fused"]["test"] == runs["flax"]["test"],
+              f"max_vlen 128: metrics differ with equal spans: {runs}")
+    return {"queries": len(sub["test_set"]), "max_vlen": 128,
+            "max_video_clips": int(tr.test_set.v_len.max()),
+            "routes": k2.routes(128, 128, CHARADES["dim"], CHARADES["num_heads"]),
+            "runs": runs, "near_ties": ties,
+            "max_logit_err_fused_vs_flax": float(max(
+                np.abs(f[k] - x[k]).max() for k in ("start_logits", "end_logits")))}
 
 
 def sweep_phase(workdir: str, config, store, dataset) -> dict:
@@ -1039,19 +1146,7 @@ def sweep_phase(workdir: str, config, store, dataset) -> dict:
                          "infer_samples_per_s": len(tr.train_set) / infer_s,
                          "launches": launches, "pickle": pkl}
 
-    # K2's limit is checked when a fused Trainer is built: past it (T=128),
-    # the constructor raises before any table goes up or any epoch runs
-    past, k2_before = copy.deepcopy(config), k2.fused_forward.launches
-    past.train.sweep_backend, past.model.max_vlen = "fused", 128
-    try:
-        Trainer(past, dataset, store, logger=quiet, device=DEVICE)
-        past_limit = None
-    except ValueError as e:
-        past_limit = str(e)
-    check(past_limit is not None and "T=128" in past_limit
-          and k2.fused_forward.launches == k2_before,
-          f"a fused Trainer at max_vlen 128: {past_limit!r}, K2 launches "
-          f"{k2_before} -> {k2.fused_forward.launches}")
+    past_limit = fused_trainer_past_old_limit(config, store, dataset, quiet)
 
     # per sample, both backends: indices and the plain (flax) logits
     diffs, outs = {}, {}
@@ -1097,11 +1192,14 @@ def sweep_phase(workdir: str, config, store, dataset) -> dict:
         "max_wlen": dataset["max_wlen"],
         "table_gb": store.packed.nbytes / 1e9,
         "runs": runs, "backend_agreement": diffs, "pickle_schema": schema,
-        "profile_test_sweep": profiles, "fused_trainer_past_k2_limit": past_limit,
+        "profile_test_sweep": profiles, "fused_trainer_max_vlen_128": past_limit,
         "timing": "seconds: host clock around Trainer.test() / infer_trainset(), "
                   "each ending in a host fetch (infer_trainset includes writing "
                   "the pickle); profile: one test() sweep under torch.profiler"}})
-    return runs["fused"]["launches"], trainers["flax"].export_device_features()
+    launches = dict(runs["fused"]["launches"],
+                    fused_forward_max_vlen_128=past_limit["runs"]["fused"]
+                    ["fused_forward_launches"])
+    return launches, trainers["flax"].export_device_features()
 
 
 # -- phase 8 ------------------------------------------------------------------
@@ -2007,16 +2105,17 @@ def bf16_stats(got, exact, plain_bf16, k2_f32) -> tuple[dict, list[str]]:
 
 
 def k2_bf16_check(W: int, resources: dict) -> dict:
-    """(a) K2 with bf16 products against its plain version on the card."""
+    """(a) K2 with bf16 products against its plain version on the card, at
+    the sweep's shapes and at K2_TILED_SHAPES."""
     rng = np.random.default_rng(SEED + 7)
-    packs = k2_packs()
-    kw = dict(attn_layer=CHARADES["attn_layer"], num_heads=CHARADES["num_heads"],
-              tau=0.3, use_gumbel=False)
-    dims = (CHARADES["dim"], CHARADES["num_heads"])
     rows, failed = [], []
-    for B, T, Wq in ((96, 64, W), (32, 100, MAX_WLEN), (3, 17, 5)):
-        packed = packs[64 if T <= 64 else 100]
-        args = k2_inputs(B, T, Wq, rng)
+    shapes = [s for s in k2_shapes(W) if s["what"] != "the sweep's shape"
+              or (s["B"], s["T"]) in ((96, 64), (32, 100), (3, 17))]
+    for shape in shapes:
+        B, T, Wq, D, H, packed = (shape[k] for k in ("B", "T", "W", "D", "H", "packed"))
+        kw = dict(attn_layer=CHARADES["attn_layer"], num_heads=H, tau=0.3,
+                  use_gumbel=False)
+        args = k2_inputs(B, T, Wq, rng, D)
         got = k2.fused_forward(packed, *args, **kw, mxu_bf16=True)
         f32 = k2.fused_forward(packed, *args, **kw)
         torch.cuda.synchronize()
@@ -2025,7 +2124,7 @@ def k2_bf16_check(W: int, resources: dict) -> dict:
         exact = forward_math(p64, *a64, **kw)
         plain_bf16 = forward_math(p64, *a64, **kw, mxu_bf16=True)
         stats, bad = bf16_stats(got, exact, plain_bf16, f32)
-        failed += [f"{(B, T, Wq)}: {b}" for b in bad]
+        failed += [f"{(B, T, Wq, D, H)}: {b}" for b in bad]
         vm = args[2]
         spans = [torch.stack(k1.span_decode(s, e, vm), 1) for s, e in
                  (got[:2], [r.float() for r in plain_bf16[:2]], f32[:2])]
@@ -2038,12 +2137,13 @@ def k2_bf16_check(W: int, resources: dict) -> dict:
         busy = device_profile(kernel, calls=10, top=1)
         if "top_kernels" not in busy:  # in this long process the profiler
             busy = device_profile(kernel, calls=10, top=1)  # has missed them
-        flops = k2_flops(B, T, Wq)
+        flops = k2_flops(B, T, Wq, D)
         n_bytes = (packed.buffer.numel() * 4 + sum(a.numel() * 4 for a in args)
                    + B * T * 6 * 4)
         t_ops, t_bytes = flops / BF16_FLOPS * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
         bound = max(t_ops, t_bytes)
-        rows.append({"B": B, "T": T, "W": Wq, "errors": stats,
+        rows.append({"B": B, "T": T, "W": Wq, "D": D, "H": H, "what": shape["what"],
+                     "errors": stats,
                      "max_abs_err": max(stats["start_logits"]["max_abs_err"],
                                         stats["end_logits"]["max_abs_err"]),
                      "spans_equal_plain_bf16": (spans[0] == spans[1]).all(1).float()
@@ -2055,7 +2155,8 @@ def k2_bf16_check(W: int, resources: dict) -> dict:
                      "bytes": n_bytes, "bound_ms": bound,
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                      "bound_share": bound / ms,
-                     "smem_bytes_per_block": k2.smem_bytes(T, Wq, *dims)})
+                     "smem_bytes_per_block": k2.smem_bytes(T, Wq, D, H, mxu_bf16=True),
+                     "routes": k2.routes(T, Wq, D, H)})
     emit({"bf16_k2": {
         "shapes": rows, "ptxas": resources.get("fused_forward"),
         "reference": "errors against the plain version in f64 without rounding; "
@@ -3528,6 +3629,11 @@ TOOL_FACTS = {"strategy_ablation_loop": ablation_facts, "mc_comparison": mc_fact
 # host; the benches, whose times PERF.md reads, run alone)
 TOGETHER = ("validate_pipeline", "full_loop_demo", "real_assets_parity",
             "strategy_ablation_loop", "mc_comparison")
+# the benches, in groups that start together: their start-ups, most of
+# each bench's seconds, overlap (one at a time the phase took 234-318 s)
+BENCH_GROUPS = (("bench_span_decode", "bench_fused", "bench_serve", "bench_eval_batch"),
+                ("bench_step_breakdown", "bench_train_batch", "bench_bf16_train"),
+                ("sweep_ablation", "bench_int8_table"))
 
 
 def peak_shares(result) -> list[float]:
@@ -3564,7 +3670,8 @@ def tools_phase(workdir: str) -> dict:
     (2,000 / 500, 15 epochs, 3 rounds): :func:`mc_facts`.  The five loop
     tools (validate, the full loop, the real-assets dry run, the ablation,
     the MC comparison) run at the same time (:data:`TOGETHER`), after the
-    benches, each of which runs alone.  Each must exit 0,
+    benches, which run in the groups of :data:`BENCH_GROUPS`.  Each must
+    exit 0,
     write its JSON with the expected keys, print its launches once, hold no
     share of the peak above 1 and launch K1; those that run fused sweeps,
     and only they, must launch K2; none launches K2's bf16 path.  Returns
@@ -3573,18 +3680,21 @@ def tools_phase(workdir: str) -> dict:
     root = os.path.join(workdir, "tools")
     os.makedirs(root)
     total = {"span_decode": 0, "fused_forward": 0, "fused_forward_bf16": 0}
-    runs = {"runs": {}, "runs_contended": {}}
-    groups = ([[t] for t in TOOLS if t[0] not in TOGETHER]
-              + [[t for t in TOOLS if t[0] in TOGETHER]])
+    runs = {"runs_contended": {}}
+    groups = [[t for t in TOOLS if t[0] in names] for names in BENCH_GROUPS + (TOGETHER,)]
+    check(sorted(t[0] for g in groups for t in g) == sorted(t[0] for t in TOOLS),
+          "tools: the groups leave out or repeat a tool")
     for group in groups:
         for name, args, with_k2, keys, out, seconds, log in run_together(root, group):
-            runs["runs_contended" if name in TOGETHER else "runs"][name] = tool_checks(
-                name, args, with_k2, keys, out, seconds, log, total)
+            runs["runs_contended"][name] = tool_checks(name, args, with_k2, keys, out,
+                                                       seconds, log, total)
     emit({"tools_charades": {
         "card": CARD[0], **runs, "launches": total,
-        "runs_contended_note": "started at the same time: their seconds, stage and "
-                               "wall times include the others' share of the card and "
-                               "the host, and compare with no run made alone",
+        "groups": [[t[0] for t in g] for g in groups],
+        "runs_contended_note": "each group started at the same time (groups in turn): "
+                               "their seconds, stage and wall times include the others' "
+                               "share of the card and the host, and compare with no "
+                               "run made alone",
         "seconds": time.perf_counter() - t_phase}})
     return total
 
@@ -3744,14 +3854,18 @@ def main(argv: list[str]) -> None:
         "library_ms": None, "shape": list(MAIN_SHAPE)}, {
         "name": "fused_forward", "route": "cuda",
         "source": "hual_tpu_torch/csrc/fused_forward.cu",
+        "general_build": "hual_tpu_torch/csrc/fused_forward_general.cu",
         "replaces": "hual_tpu/ops/pallas/fused_forward.py:438",
         "launches": (sweep_launches["fused_forward"]
+                     + sweep_launches["fused_forward_max_vlen_128"]
                      + train_launches["train"]["fused_forward"]
                      + train_launches["mc_sweep_fused"]["fused_forward"]
                      + bf16_options["fused_forward"] + loop_launches["fused_forward"]
                      + graph_launches["fused_forward"] + parallel_launches["fused_forward"]
                      + migrate_launches["fused_forward"] + tool_launches["fused_forward"]),
         "launches_by_path": {"sweep_fused": sweep_launches["fused_forward"],
+                             "sweep_fused_max_vlen_128":
+                                 sweep_launches["fused_forward_max_vlen_128"],
                              "train": train_launches["train"]["fused_forward"],
                              "mc_sweep_fused":
                                  train_launches["mc_sweep_fused"]["fused_forward"],
@@ -3767,6 +3881,7 @@ def main(argv: list[str]) -> None:
         "library_ms": None, "shape": [k2_main["B"], k2_main["T"], k2_main["W"]]}, {
         "name": "fused_forward_bf16", "route": "cuda",
         "source": "hual_tpu_torch/csrc/fused_forward.cu",
+        "general_build": "hual_tpu_torch/csrc/fused_forward_general.cu",
         "replaces": "hual_tpu/ops/pallas/fused_forward.py:438",
         "branch": "mxu_bf16 (_forward_math, hual_tpu/ops/pallas/fused_forward.py:189-224)",
         "launches": bf16_launches + parallel_launches["fused_forward_bf16"],

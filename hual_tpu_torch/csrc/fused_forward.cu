@@ -71,9 +71,12 @@
 //       (cp.async.bulk, no tensor map) that thread 0 issues as soon as the
 //       block is past the slot's last product.  The next products' weights
 //       are in flight while a product and the stages between run: no
-//       product waits for a first slab.  A product takes at most 4 slabs
-//       (K <= 256), so the CQ attentions' (4D x D) denses run as two
-//       products of K = 2D, the second adding the first's sums.
+//       product waits for a first slab.  A slot holds 128 output columns
+//       and a product takes at most 4 slabs (K <= 256) at once, so a dense
+//       of more runs in column passes and in chunks of k, every chunk but
+//       the last keeping its sums in the workspace for the next (the CQ
+//       attentions' (4D x D) denses are two such chunks at D=128); rows
+//       past 128 run in row passes under the same slabs (dense_bf16).
 //     - Activations: the whole block rounds a product's rows once into the
 //       A image in shared memory (16-byte stores in the image's order,
 //       loads issued 4 chunks ahead); products that read the same rows
@@ -93,15 +96,23 @@
 //       warp summing one 16 x 16 job at a time over the resident slabs.
 //       Attention runs mma.sync too, one warp per (head, 16 query rows): q,
 //       k and v rounded into per-head images (rows of up16(hd) values + 8,
-//       conflict-free), q.k^T into registers (a row of up to 112 keys), the
-//       masked softmax there (a row lies in the 4 lanes of a quad), p.v
-//       with p rounded straight from the scores' accumulators, whose
-//       layout is the A fragments'.  Zero fill covers ragged k (hd=8,
-//       Tk=13) and padded keys; padded rows and columns are never stored.
+//       conflict-free; a group of heads at a time where all do not fit),
+//       q.k^T into registers (a row of up to 112 keys), the masked softmax
+//       there (a row lies in the 4 lanes of a quad), p.v with p rounded
+//       straight from the scores' accumulators, whose layout is the A
+//       fragments'.  Over more than 112 keys it streams: one head and 128
+//       query rows at a time, the keys in chunks of 64 and the head dims in
+//       chunks of 64 staged in turn, a first pass for each row's running
+//       maximum and sum and a second for p.v (attention_bf16_streamed).
+//       Zero fill covers ragged k (hd=8, Tk=13) and padded keys; padded
+//       rows and columns are never stored.
 //     - Shared memory (Bf16Layout): the image region (a dense's A image,
 //       the CQ products' two images or attention's q/k/v), the ring, its
-//       barriers and the masks: 172,388 bytes at T=64, 227,896 at T=100
-//       (one layout for both; the region is attention's at either).
+//       barriers and the masks: 172,388 bytes at T=64, 227,896 at T=100.
+//       Each stage's images take their resident form where it fits; the
+//       CQ products tile (cq_tile rows, columns and k, up to 128) and the
+//       attention groups its heads where it does not, so the block fits at
+//       any shape.
 //     What stays: the CUDA-core stages (LayerNorm, depthwise taps, softmaxes,
 //     gates, CQ dots) and the activations' trips through the workspace.
 //     Fragments (CUTLASS's SM80_16x8x16_F32BF16BF16F32_TN):
@@ -126,24 +137,34 @@
 //   integer operations.  Zero fill pads every ragged tile (T=100, W=13,
 //   Tk=13): padded k reads zeros, padded outputs are never stored, and no
 //   padded column enters a softmax.
-// - Attention in shared memory: q, k and v are copied there once a call
-//   (over the stages, which are free between products); then a group of
-//   heads at a time (as many as fit: 4 of 8 at T=64, 1 at T=100; see
-//   fused_forward_heads_per_group) gets its Tq x Tk scores there, the
-//   masked softmax over the real Tk (8 lanes a row), and p.v, with both
-//   operands read in place and no barrier inside a product: the warps take
-//   (head, tile) jobs in turn.
+// - The A stage holds one pass's rows (at most 256), whatever T.
+// - Attention in shared memory (SmemLayout's routes, see
+//   fused_forward_routes): q, k and v are copied there once a call (over the
+//   stages, which are free between products); then a group of heads at a
+//   time (as many as fit: 4 of 8 at T=64, 1 at T=100) gets its Tq x Tk
+//   scores there, the masked softmax over the real Tk (8 lanes a row), and
+//   p.v, with both operands read in place and no barrier inside a product:
+//   the warps take (head, tile) jobs in turn.  Where q, k and v of every
+//   head do not fit beside one head's scores (T=W=128 at D=128), a group
+//   of heads has its q, k and v copied in turn, its scores beside them;
+//   where one head's scores do not fit either (T=256), each head's scores
+//   go to the workspace through the staged products, the same sums in the
+//   same order.
 // Both paths:
 // - The activations between stages stay in a per-sample workspace in
-//   device memory (fused_forward_workspace_floats: 0.49 MB a sample at
-//   T=64, 0.83 MB at T=100): 13 buffers of Lm x D, shared by activations
+//   device memory (fused_forward_workspace_floats: 0.53 MB a sample at
+//   T=64, 0.88 MB at T=100): 13 buffers of Lm x D, shared by activations
 //   whose lifetimes do not overlap, the CQ attention's four Lm x Lm
-//   matrices and 5 small vectors, read back through L1 and L2.
+//   matrices, 5 small vectors, a place for the masks where shared memory
+//   has none left, and a split product's partial sums, read back through
+//   L1 and L2.
 // - Narrow products stay on the CUDA cores, summed in f64: the matching
 //   head (N=4; on the bf16 path its kernel from the companion) and the
-//   final (D,1) denses; the pooling and trilinear dots in f32.  LayerNorm holds a row in registers (a float4 a
-//   lane); the depthwise conv and the elementwise stages go 4 channels a
-//   thread.
+//   final (D,1) denses; the pooling and trilinear dots in f32.  LayerNorm
+//   holds a row in registers (a float4 a lane) at D <= 128, a multiple of
+//   4, and loops over chunks of 32 columns otherwise; the depthwise conv
+//   and the elementwise stages go 4 channels a thread, or one where D is
+//   not a multiple of 4.
 // - Each bilinear of a dual-attention layer is one product with K = 2D:
 //   out and the guided output share a buffer as the two halves of each
 //   row, and the packed dense_1 and dense_2 kernels are adjacent, so
@@ -162,16 +183,29 @@
 // dual attention, CQ attention, feature encoder, LayerNorm, softmax) and
 // every product is a separate function (__noinline__), and the kernel's
 // pointers into the workspace are derived from the Ctx at each use, so no
-// function holds more across a call than the ABI keeps: ptxas reports 238
-// registers (f64 path) and 205 (bf16 path), 664 bytes of stack and no
-// spills (sm_90a, CUDA 12.8).
+// function holds more across a call than the ABI keeps: ptxas reports 236
+// registers (f64 path) and 204 (bf16 path) for the resident build, 255 and
+// 239 for the general one, no spills in either (sm_90a, CUDA 12.8).  ptxas
+// allocates registers across the calls, a caller's live values above its
+// callees', so the general build keeps its call chains short: the tiled
+// dense runs from the stage itself (dense(): tiled_pass per pass, each
+// derived from a counter), the streamed attentions are their own
+// functions, and the streamed bf16 attention holds 64 keys a row.
 // Resources: 256 threads; dynamic shared memory (fused_forward_smem_bytes,
 // fused_forward_bf16_smem_bytes) of the stages or q/k/v, a head group's
 // scores and the masks: 174 KB at T=64, 213 KB at T=100 (the bf16 path's
 // above), opted in above 48 KB with cudaFuncSetAttribute.
-// T and W are at most kMaxLen = 100 and D at most kMaxDim = 128, a
-// multiple of 4, so that q, k and v fit beside one head's scores (the
-// wrapper's check_kernel_shape).
+// Shapes: any T >= 1, W >= 1 and D that H divides, as the Pallas kernel
+// takes them; past what fits in kSmemLimit every stage tiles, with shared
+// memory bounded whatever the shape (the wrapper's check_kernel_shape is
+// the remainder).  Two builds of this file: the resident kernel
+// (K2_GENERAL 0, this file) takes the shapes whose every stage is resident
+// (fused_forward_takes: D <= 128 and a multiple of 4, at most 112 keys,
+// every image in shared memory) with the code those shapes ran before the
+// tiled routes existed; the general kernel (fused_forward_general.cu) takes
+// every shape.  Compiled into one kernel, the routes the shipped shapes
+// never run cost them up to 7% (PERF.md): they moved the resident
+// code's register allocation and layout.
 //
 // Plain C interface, bound from Python with ctypes; the entry point returns
 // the first CUDA error of its attribute call or launch.
@@ -179,6 +213,14 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+// The instantiations this library holds: the resident kernel (0), whose
+// stages are the shapes' of the old limit and whose code is what it was
+// before the tiled routes; or, built from fused_forward_general.cu, the
+// general kernel (1), every route.
+#ifndef K2_GENERAL
+#define K2_GENERAL 0
+#endif
 
 #include <type_traits>
 
@@ -200,48 +242,84 @@ constexpr int kSlab = 64;             // k depth of one staged slab
 constexpr int kSlabShift = 6;         // log2(kSlab)
 constexpr int kSlabLd = kSlab + 4;    // row stride of a k-contiguous slab
 constexpr int kMaxPassN = 4 * kTile;  // widest pass: 4 warps across N
-constexpr int kMaxLen = 100;          // largest T or W
-constexpr int kMaxDim = 128;          // largest D
 constexpr long kSmemLimit = 232448;   // bytes of shared memory a block may use
 
 // the bf16 path (mxu_bf16)
 constexpr int kRing = 6;              // weight slabs in flight
 constexpr int kKSlab = 64;            // k depth of a weight slab
-constexpr int kSlotValues = kMaxDim * kKSlab;  // bf16 values of a ring slot
+constexpr int kRingRows = 128;        // output columns of a slot: a column pass
+constexpr int kSlotValues = kRingRows * kKSlab;  // bf16 values of a ring slot
+constexpr int kChunkSlabs = 4;        // slabs of one product: k <= 256 a chunk
+constexpr int kRowPass = 128;         // rows of a dense's A image: a row pass
 constexpr int kSyncRows = 48;         // products of up to 48 rows run on mma.sync
-constexpr int kMaxKeyFrags = 14;      // 8-key fragments of a score row (Tk <= 112)
+constexpr int kMaxKeyFrags = 14;      // 8-key fragments of a score row
+constexpr int kKeyChunk = 8 * kMaxKeyFrags;  // keys a warp holds at once (112)
+constexpr int kStreamFrags = 8;       // the streamed attention's chunk: 64 keys
+constexpr int kStreamKeys = 8 * kStreamFrags;
+constexpr int kQBlock = 16 * kWarps;  // query rows of a streamed attention block
+constexpr int kDimChunk = 64;         // head dims a streamed attention stages
+constexpr int kCqTileMax = 128;       // widest tile of a tiled CQ product
+
+// attention routes of the f64 path (SmemLayout)
+constexpr int kResident = 0, kGrouped = 1, kStreamed = 2;
 
 // Per-sample workspace: kBuffers buffers of Lm x D (Lm = max(T, W)), the
-// CQ attention's 4 matrices of Lm x Lm and 5 small vectors.  Buffers whose
-// lifetimes do not overlap share one (see the kernel).
+// CQ attention's 4 matrices of Lm x Lm, 5 small vectors, the two masks
+// (used when they do not fit in shared memory) and the partial sums of a
+// product split over k (Lm x max(Lm, D)).  Buffers whose lifetimes do not
+// overlap share one (see the kernel).
 constexpr int kBuffers = 13;
 
-// Dynamic shared memory, in floats: a region that holds either the two
-// stages of a staged product (each an A slab of up to Lm rows, then a B
-// slab) or, inside attention, the Q, K and V rows; then the score tiles of
-// a group of `heads` heads (Lm rows each); then the two masks.  Q and K
-// rows are D+4 floats apart, V rows D+8, score rows lm_pad+4: conflict-free
-// fragment loads.  `heads` is the largest divisor of H that fits.
+__host__ __device__ constexpr long lmax(long a, long b) { return a > b ? a : b; }
+
+// Dynamic shared memory of the f64 path, in floats: the stage region (the
+// two stages of a staged product, each an A slab of up to one pass's rows,
+// then a B slab), then the masks.  Attention takes the first of three
+// routes that fits in kSmemLimit:
+// - kResident: q, k and v of every head in the region, then the score tiles
+//   of `heads` heads (Lm rows each) after it;
+// - kGrouped: q, k and v of `heads` heads at a time, their scores right
+//   after them, all in the region (which grows to hold them);
+// - kStreamed: one head's scores in the workspace (the CQ attention's
+//   matrices, free then), its products staged as the dense layers' are.
+// Q and K rows are w+4 floats apart, V rows w+8 (w the staged columns),
+// score rows lm_pad+4: conflict-free fragment loads.  `heads` is the
+// largest divisor of H that fits.  The masks go to the workspace when even
+// the stages leave no room for them.
 struct SmemLayout {
-  int a_floats, b_floats, region, score_ld, head_floats, heads, masks;
+  long region, head_floats;
+  int a_floats, b_floats, score_ld, heads, attn, masks;
+  bool masks_smem;
   __host__ __device__ SmemLayout(int T, int W, int D, int H) {
-    const int lm = T > W ? T : W;
+    const int lm = T > W ? T : W, hd = D / H;
     const int lm_pad = (lm + kTile - 1) / kTile * kTile;
-    a_floats = lm_pad * kSlabLd;
+    a_floats = (lm_pad < kTile * kWarps ? lm_pad : kTile * kWarps) * kSlabLd;
     const int row_major = kSlab * (kMaxPassN + 8), nt = kMaxPassN * kSlabLd;
     b_floats = row_major > nt ? row_major : nt;
-    const int stages = 2 * (a_floats + b_floats),
-              qkv = lm * (3 * D + 16);
-    region = stages > qkv ? stages : qkv;
+    const long stages = 2L * (a_floats + b_floats), limit = kSmemLimit / 4;
     score_ld = lm_pad + 4;
-    head_floats = lm * score_ld;
+    head_floats = static_cast<long>(lm) * score_ld;
     masks = T + W;
-    for (heads = H; heads > 1; --heads)
-      if (H % heads == 0 && floats() * 4 <= kSmemLimit) break;
+    masks_smem = true;
+    attn = kResident;
+    region = lmax(stages, static_cast<long>(lm) * (3 * D + 16));
+    for (heads = H; heads >= 1; --heads)
+      if (H % heads == 0 && floats() <= limit) return;
+    attn = kGrouped;
+    for (heads = H; heads >= 1; --heads) {
+      if (H % heads) continue;
+      region = lmax(stages, static_cast<long>(lm) * (3 * heads * hd + 16) +
+                                heads * head_floats);
+      if (floats() <= limit) return;
+    }
+    attn = kStreamed;
+    heads = 1;
+    region = stages;
+    masks_smem = floats() <= limit;
   }
   __host__ __device__ long floats() const {
-    return static_cast<long>(region) + static_cast<long>(heads) * head_floats +
-           masks;
+    return region + (attn == kResident ? heads * head_floats : 0) +
+           (masks_smem ? masks : 0);
   }
 };
 
@@ -459,6 +537,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
 }
 
 __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
 __host__ __device__ constexpr int up16(int v) { return (v + 15) / 16 * 16; }
 
 // Rows of a bf16 product's A image: mma.sync tiles of 16 up to kSyncRows
@@ -467,27 +546,59 @@ __host__ __device__ constexpr int bf16_rows(int M) {
   return M <= kSyncRows ? up16(M) : (M + 63) / 64 * 64;
 }
 
-// Dynamic shared memory of the bf16 path, in bytes: the image region (a
-// dense's A image, a product of two activations' A and B images, or an
-// attention's q, k and v images), the ring of weight slabs, its mbarriers
-// and the two masks.
+// Bytes of a streamed attention's images (attention_bf16_streamed): a
+// block of query rows, a chunk of keys and of values, up to kDimChunk head
+// dims each.
+__host__ __device__ constexpr long streamed_attention_bytes(int hd) {
+  return 2L * (kQBlock + 2 * kStreamKeys) *
+         ((up16(hd) < kDimChunk ? up16(hd) : kDimChunk) + 8);
+}
+
+// Dynamic shared memory of the bf16 path, in bytes: the image region, the
+// ring of weight slabs, its mbarriers and the two masks.  The region holds
+// a dense's A image (a row pass of up to kRowPass rows, a chunk of up to
+// kChunkSlabs slabs), a product of two activations' A and B images
+// (resident, or with cq_tile > 0 tiles of cq_tile rows, columns and k),
+// or an attention's q, k and v images (`heads` heads at a time; every
+// attention over more than kKeyChunk keys, or all of them when no head
+// fits, streams its images).  Each takes its resident form where that fits
+// beside the ring and the masks; the masks go to the workspace when even
+// the smallest forms leave no room for them.
 struct Bf16Layout {
   long ring, bars, masks, bytes;
   int qkv_rows;  // rows of a head's q, k or v image
+  int heads, cq_tile;
+  bool masks_smem;
   __host__ __device__ Bf16Layout(int T, int W, int D, int H) {
-    const int lm = imax(T, W), rows = bf16_rows(lm);
-    const int kdense = imax(2 * up16(D), up16(2 * D));  // K <= 2D a product
+    const int lm = imax(T, W), hd = D / H;
+    const long fixed = 2L * kRing * kSlotValues + 8L * kRing, mask = 4L * (T + W);
+    // the widest chunk: a bilinear's two D-deep leaves, the CQ denses' two
+    // 2D-deep halves
+    const int kdense = 2 * up16(2 * D);
+    const long dense = 2L * bf16_rows(lm < kRowPass ? lm : kRowPass) *
+                       (kdense < kChunkSlabs * kKSlab ? kdense : kChunkSlabs * kKSlab);
+    const long stream = streamed_attention_bytes(hd);
+    const long least = lmax(lmax(dense, lm > kKeyChunk ? stream : 0), 4L * 16 * 16);
+    masks_smem = fixed + (least + 127) / 128 * 128 + mask <= kSmemLimit;
+    const long budget = (kSmemLimit - fixed - (masks_smem ? mask : 0)) / 128 * 128;
     const int kact = up16(imax(lm, D));
-    const long dense = 2L * rows * kdense;
-    const long act = 2L * rows * kact + 2L * kact * kact;
+    long act = 2L * bf16_rows(lm) * kact + 2L * kact * kact;
+    cq_tile = 0;
+    if (act > budget) {
+      for (cq_tile = kCqTileMax; cq_tile > 16 && 4L * cq_tile * cq_tile > budget;)
+        cq_tile -= 16;
+      act = 4L * cq_tile * cq_tile;
+    }
     qkv_rows = up16(lm);
-    const long attn = 2L * 3 * H * qkv_rows * (up16(D / H) + 8);
-    const long region = dense > act ? (dense > attn ? dense : attn)
-                                    : (act > attn ? act : attn);
+    const long head = 2L * 3 * qkv_rows * (up16(hd) + 8);
+    for (heads = H; heads >= 1; --heads)
+      if (H % heads == 0 && heads * head <= budget) break;
+    const long attn = lmax(heads * head, lm > kKeyChunk || heads == 0 ? stream : 0);
+    const long region = lmax(lmax(dense, act), attn);
     ring = (region + 127) / 128 * 128;
     bars = ring + 2L * kRing * kSlotValues;
     masks = bars + 8L * kRing;
-    bytes = masks + 4L * (T + W);
+    bytes = masks + (masks_smem ? mask : 0);
   }
 };
 
@@ -597,9 +708,12 @@ struct Ctx {
   int stage_floats;  // a B slab; inside attention, the Q, K and V rows
   int a_floats;
   float* S;          // the scores of `heads` heads: Tq rows of lds floats each
-  int lds, heads;
+  int lds, heads;    // (the bf16 path: heads whose images fit, 0 for none)
+  int attn;          // the f64 path's attention route (SmemLayout)
+  int cq_tile;       // the bf16 path's CQ product tile, 0 for resident
   float* ws;         // the sample's workspace: buffers of ld floats
   long ld;
+  float* part;       // partial sums of a product split over k (workspace)
   // the bf16 path
   uint16_t* img;          // the image region (Bf16Layout)
   uint16_t* ring;         // kRing slots of kSlotValues
@@ -839,6 +953,40 @@ __device__ __noinline__ void layer_norm(const float* __restrict__ x,
   }
 }
 
+// LayerNorm (layer_norm) at any other D than one float4 a lane, in the
+// general kernel: one warp per row, the row in chunks of 32 columns, one a
+// lane, read from L1 three times (mean, variance, output).
+__device__ __noinline__ void layer_norm_chunks(const float* __restrict__ x,
+                                               float* __restrict__ y, int ldy, int L,
+                                               int D, LN p) {
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  for (int row = warp; row < L; row += kWarps) {
+    const float* xr = x + static_cast<long>(row) * D;
+    float s = 0.0f;
+    for (int d = lane; d < D; d += kWarp) s += xr[d];
+    const float mean = warp_sum(s) / D;
+    float var = 0.0f;
+    for (int d = lane; d < D; d += kWarp) {
+      const float c = xr[d] - mean;
+      var += c * c;
+    }
+    const float inv = rsqrtf(warp_sum(var) / D + 1e-6f);
+    float* yr = y + static_cast<long>(row) * ldy;
+    for (int d = lane; d < D; d += kWarp)
+      yr[d] = (xr[d] - mean) * inv * p.scale[d] + p.bias[d];
+  }
+}
+
+// LayerNorm at any D: layer_norm where a float4 a lane holds a row,
+// layer_norm_chunks elsewhere (the general kernel only).
+template <bool kGen>
+__device__ __forceinline__ void ln(const float* x, float* y, int ldy, int L, int D, LN p) {
+  if (kGen && (D > 4 * kWarp || D % 4 != 0))
+    layer_norm_chunks(x, y, ldy, L, D, p);
+  else
+    layer_norm(x, y, ldy, L, D, p);
+}
+
 // Softmax over each of R rows of length N (row stride ld), in place; 8
 // lanes a row, 32 rows at a time.
 __device__ __noinline__ void softmax_rows(float* s, int R, int N, int ld) {
@@ -997,21 +1145,33 @@ __device__ __forceinline__ void hmma4(float& d0, float& d1, float& d2, float& d3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The bf16 products on mma.sync: epi(m, n, sum + bias[n], res[m, n] or 0)
-// for C (M x N) = A . B^T summed over `ns` slabs, slab(i, b, kw, ka) giving
-// slab i's B image b (kw values wide, a multiple of 16) and its columns
-// [ka, ka + kw) of the A image (a_kw values wide).  Every slab is in shared
-// memory: the warps take 16 x 16 jobs in turn, each summed over all slabs
-// with fragments from ldmatrix and stored at once (its bias values and
-// residuals loaded before its first store).
+// The bias values (and a split product's partial sums, before them) an
+// output adds to its sum: bias[n] alone where there is no part, so that an
+// unsplit product adds exactly what it did before products were split.
+__device__ __forceinline__ float addend(const float* bias, const float* part, int m,
+                                        int n, int N) {
+  const float b = bias != nullptr ? bias[n] : 0.0f;
+  return part != nullptr ? part[static_cast<long>(m) * N + n] + b : b;
+}
+
+// The bf16 products on mma.sync: epi(m, n, sum [+ part[m, n] + bias[n]],
+// res[m, n] or 0) for m in [r0, r0 + mn), n in [c0, c0 + nn), both below M
+// and N (res and part have rows of N), of C = A . B^T summed over `ns`
+// slabs: the A image holds rows [r0, r0 + mn), slab(i, b, kw, ka) gives
+// slab i's B image b (columns [c0, c0 + nn), kw values wide, a multiple of
+// 16) and its columns [ka, ka + kw) of the A image (a_kw values wide).
+// Every slab is in shared memory: the warps take 16 x 16 jobs in turn, each
+// summed over all slabs with fragments from ldmatrix and stored at once
+// (its bias values and residuals loaded before its first store).
 template <class SlabFn, class Epi>
 __device__ __forceinline__ void sync_products(const uint16_t* A, int a_kw, int ns,
-                                              SlabFn slab, int M, int N,
+                                              SlabFn slab, int r0, int mn, int M,
+                                              int c0, int nn, int N,
                                               const float* bias, const float* res,
-                                              Epi epi) {
+                                              const float* part, Epi epi) {
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int g = lane >> 2, t = lane & 3;
-  const int nt = (N + 15) / 16, jobs = (M + 15) / 16 * nt;
+  const int nt = (nn + 15) / 16, jobs = (mn + 15) / 16 * nt;
   for (int job = warp; job < jobs; job += kWarps) {
     const int m0 = job / nt * 16, n0 = job % nt * 16;
     float acc[8];
@@ -1037,21 +1197,23 @@ __device__ __forceinline__ void sync_products(const uint16_t* A, int a_kw, int n
         hmma4(acc[4], acc[5], acc[6], acc[7], fa, fb[2], fb[3]);
       }
     }
-    // acc[4f + 2h + q]: row m0 + g + 8h, column n0 + 8f + 2t + q
+    // acc[4f + 2h + q]: row r0 + m0 + g + 8h, column c0 + n0 + 8f + 2t + q
     float bv[8], rv[8];
 #pragma unroll
     for (int v = 0; v < 8; ++v) {
-      const int m = m0 + g + 8 * ((v >> 1) & 1), n = n0 + 8 * (v >> 2) + 2 * t + (v & 1);
+      const int m = r0 + m0 + g + 8 * ((v >> 1) & 1),
+                n = c0 + n0 + 8 * (v >> 2) + 2 * t + (v & 1);
       const bool ok = m < M && n < N;
-      bv[v] = bias != nullptr && ok ? bias[n] : 0.0f;
+      bv[v] = ok ? addend(bias, part, m, n, N) : 0.0f;
       rv[v] = res != nullptr && ok ? res[static_cast<long>(m) * N + n] : 0.0f;
     }
 #pragma unroll
     for (int v = 0; v < 8; ++v) {
-      const int m = m0 + g + 8 * ((v >> 1) & 1), n = n0 + 8 * (v >> 2) + 2 * t + (v & 1);
+      const int m = r0 + m0 + g + 8 * ((v >> 1) & 1),
+                n = c0 + n0 + 8 * (v >> 2) + 2 * t + (v & 1);
       if (m >= M || n >= N) continue;
       float r = acc[v];
-      if (bias != nullptr) r = r + bv[v];
+      if (bias != nullptr || part != nullptr) r = r + bv[v];
       epi(m, n, r, rv[v]);
     }
   }
@@ -1065,11 +1227,14 @@ __device__ __forceinline__ void sync_products(const uint16_t* A, int a_kw, int n
 // branch between them), committed and waited for once; then the
 // epilogue, 16 outputs at a time (their bias values and residuals loaded
 // first).  A warpgroup whose columns lie past N computes them all the same
-// and stores none.
+// and stores none.  The image holds rows [r0, r0 + kRows) and the slots
+// columns [c0, c0 + kRingRows) of the output; thread 0 refills the slots
+// when `refill` (the last row pass over them).
 template <int kRows, int kSlabs, class Epi>
-__device__ __forceinline__ void wgmma_products(const Ctx& x, int s0, int M, int N,
-                                               const float* bias, const float* res,
-                                               Epi epi) {
+__device__ __forceinline__ void wgmma_products(const Ctx& x, int s0, int r0, int M,
+                                               int c0, int N, const float* bias,
+                                               const float* res, const float* part,
+                                               bool refill, Epi epi) {
   constexpr int kN = kRows == 64 ? 32 : 64, kAkw = kSlabs * kKSlab;
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int g = lane >> 2, t = lane & 3, wg = warp / 4;
@@ -1097,42 +1262,174 @@ __device__ __forceinline__ void wgmma_products(const Ctx& x, int s0, int M, int 
   wgmma_wait();
   reg_fence(acc);
   __syncthreads();  // the A image and the slots are free
-  ring_refill(x, s0, kSlabs);
-  // acc[4j + 2h + q]: row m0 + 16 (warp % 4) + g + 8h, column n0 + 8j + 2t + q
+  if (refill) ring_refill(x, s0, kSlabs);
+  // acc[4j + 2h + q]: row r0 + m0 + 16 (warp % 4) + g + 8h, column c0 + n0 +
+  // 8j + 2t + q
 #pragma unroll
   for (int c = 0; c < kN; c += 16) {
     float bv[16], rv[16];
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const int v = c + i;
-      const int m = m0 + 16 * (warp % 4) + g + 8 * ((v >> 1) & 1);
-      const int n = n0 + 8 * (v >> 2) + 2 * t + (v & 1);
+      const int m = r0 + m0 + 16 * (warp % 4) + g + 8 * ((v >> 1) & 1);
+      const int n = c0 + n0 + 8 * (v >> 2) + 2 * t + (v & 1);
       const bool ok = m < M && n < N;
-      bv[i] = bias != nullptr && ok ? bias[n] : 0.0f;
+      bv[i] = ok ? addend(bias, part, m, n, N) : 0.0f;
       rv[i] = res != nullptr && ok ? res[static_cast<long>(m) * N + n] : 0.0f;
     }
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const int v = c + i;
-      const int m = m0 + 16 * (warp % 4) + g + 8 * ((v >> 1) & 1);
-      const int n = n0 + 8 * (v >> 2) + 2 * t + (v & 1);
+      const int m = r0 + m0 + 16 * (warp % 4) + g + 8 * ((v >> 1) & 1);
+      const int n = c0 + n0 + 8 * (v >> 2) + 2 * t + (v & 1);
       if (m >= M || n >= N) continue;
       float r = acc[v];
-      if (bias != nullptr) r = r + bv[i];
+      if (bias != nullptr || part != nullptr) r = r + bv[i];
       epi(m, n, r, rv[i]);
     }
   }
 }
 
+// The tiled route of a bf16 dense (dense_bf16): `in` (M x K) @ W + bias
+// into x.part (M x N), W's slabs from the ring as the pack's schedule lists
+// them.  The product runs in
+// - chunks of up to kChunkSlabs consecutive slabs (K <= 256 a chunk), each
+//   with its own A image, every chunk after the first adding the sums the
+//   one before left in x.part (the split-K route);
+// - column passes of up to kRingRows outputs, a ring slot's rows, each
+//   waiting for the chunk's slabs cut to its columns (the schedule lists
+//   them chunk by chunk, pass by pass);
+// - row passes of up to kRowPass rows: past that, each pass rounds its own
+//   rows into the A image, under the same slabs.
+// One instantiation serves every dense (its epilogue only stores), so the
+// build does not grow with the epilogues and no epilogue's registers sit
+// beside the loops'.  Ends with the block synchronised after its last
+// store to x.part.
+// The tiled route of a bf16 dense (dense_bf16): `in` (M x K) @ W + bias
+// into x.part (M x N), W's slabs from the ring as the pack's schedule lists
+// them.  The product runs in
+// - chunks of up to kChunkSlabs consecutive slabs (K <= 256 a chunk), each
+//   with its own A image, every chunk after the first adding the sums the
+//   one before left in x.part (the split-K route);
+// - column passes of up to kRingRows outputs, a ring slot's rows, each
+//   waiting for the chunk's slabs cut to its columns (the schedule lists
+//   them chunk by chunk, pass by pass);
+// - row passes of up to kRowPass rows: past that, each pass rounds its own
+//   rows into the A image, under the same slabs.
+// tiled_pass runs pass `it` of them (chunk-major, then column, then row),
+// everything derived from the counter, so that its caller holds little
+// across the call; one instantiation serves every dense (it only stores).
+// Ends with the block synchronised after its last read of shared memory;
+// a wgmma pass stores after that barrier (the caller syncs before reading).
+__device__ __forceinline__ int tiled_passes(int M, int K, int N, int seg) {
+  const int slabs = (up16(seg) + kKSlab - 1) / kKSlab +
+                    (up16(K - seg) + kKSlab - 1) / kKSlab;
+  return (slabs + kChunkSlabs - 1) / kChunkSlabs * ((N + kRingRows - 1) / kRingRows) *
+         ((M + kRowPass - 1) / kRowPass);
+}
+
+__device__ __noinline__ void tiled_pass(const float* in, int lda, int M, int K, int N,
+                                        const float* bias, int seg, int it,
+                                        const Ctx& x) {
+  const int k1 = K - seg, kp0 = up16(seg), kp1 = up16(k1);
+  const int n0s = (kp0 + kKSlab - 1) / kKSlab, n1s = (kp1 + kKSlab - 1) / kKSlab;
+  const int slabs = n0s + n1s, chunks = (slabs + kChunkSlabs - 1) / kChunkSlabs;
+  const int passes_n = (N + kRingRows - 1) / kRingRows;
+  const int passes_m = (M + kRowPass - 1) / kRowPass;
+  const int pm = it % passes_m, pn = it / passes_m % passes_n, ch = it / passes_m / passes_n;
+  const int c0 = ch * kChunkSlabs, ns = min(kChunkSlabs, slabs - c0);
+  // the chunk's columns of `in`: slabs of the first segment from column
+  // c0 * kKSlab (w0 values), then the second segment's from its start
+  // (w1), or the second segment's alone from column b1 of it
+  int src, w0, w1;
+  if (c0 < n0s) {
+    src = c0 * kKSlab;
+    w0 = min(seg, (c0 + ns) * kKSlab) - src;
+    w1 = c0 + ns > n0s ? min(k1, (c0 + ns - n0s) * kKSlab) : 0;
+  } else {
+    const int b1 = (c0 - n0s) * kKSlab;
+    src = seg + b1;
+    w0 = min(k1, (c0 + ns - n0s) * kKSlab) - b1;
+    w1 = 0;
+  }
+  // the first row pass of a column pass takes its slabs from the ring
+  int s0 = x.slab;
+  if (pm == 0) {
+    x.slab = s0 + ns;
+    for (int i = 0; i < ns; ++i) ring_wait(x, s0 + i);
+    __syncwarp();
+  } else {
+    s0 -= ns;
+  }
+  float* const part = x.part;
+  const float* bias_c = ch == chunks - 1 ? bias : nullptr;
+  const float* part_in = ch > 0 ? part : nullptr;
+  const int r0 = pm * kRowPass, c0n = pn * kRingRows;
+  const int mn = min(kRowPass, M - r0), a_kw = up16(w0) + up16(w1);
+  const bool refill = pm == passes_m - 1;
+  auto ep = [=](int m, int n, float v, float) { part[static_cast<long>(m) * N + n] = v; };
+  stage_image(x.img, in + static_cast<long>(r0) * lda + src, lda, mn, w0, w1);
+  fence_proxy_async();
+  __syncthreads();
+  const bool whole = a_kw == ns * kKSlab && mn > kSyncRows;
+  const int shape = whole ? (mn > 64 ? 8 : 0) + ns : 0;
+  switch (shape) {
+#define HUAL_WGMMA(R, S)                                                         \
+  wgmma_products<R, S>(x, s0, r0, M, c0n, N, bias_c, nullptr, part_in, refill, ep); \
+  return;
+    case 1: HUAL_WGMMA(64, 1)
+    case 2: HUAL_WGMMA(64, 2)
+    case 4: HUAL_WGMMA(64, 4)
+    case 9: HUAL_WGMMA(128, 1)
+    case 10: HUAL_WGMMA(128, 2)
+    case 12: HUAL_WGMMA(128, 4)
+#undef HUAL_WGMMA
+    default: break;
+  }
+  // slab i: the first segment's, then the second's
+  sync_products(x.img, a_kw, ns, [&](int i, const uint16_t*& b, int& kw, int& ka) {
+    const int j = c0 + i;
+    if (j < n0s) {
+      kw = min(kKSlab, kp0 - j * kKSlab);
+      ka = (j - c0) * kKSlab;
+    } else {
+      const int j1 = j - n0s, first = c0 > n0s ? c0 - n0s : 0;
+      kw = min(kKSlab, kp1 - j1 * kKSlab);
+      ka = up16(w0) * (c0 < n0s) + (j1 - first) * kKSlab;
+    }
+    b = ring_slot(x, s0 + i);
+  }, r0, mn, M, c0n, min(kRingRows, N - c0n), N, bias_c, nullptr, part_in, ep);
+  __syncthreads();  // the A image and the slots are free
+  if (refill) ring_refill(x, s0, ns);
+}
+
+// epi(m, n, x.part[m, n], res[m, n] or 0) for the M x N sums a tiled route
+// left in x.part; out of line, so that the products' functions keep their
+// resident code as it was.
+template <class Epi>
+__device__ __noinline__ void apply_sums(int M, int N, const float* res, const Ctx& x,
+                                        Epi epi) {
+  const float* part = x.part;
+  for (int e = threadIdx.x; e < M * N; e += kThreads) {
+    const int m = e / N;
+    epi(m, e - m * N, part[e], res != nullptr ? res[e] : 0.0f);
+  }
+}
+
 // A dense layer on the bf16 path: epi(m, n, in[m, :] @ W[:, n] + bias[n],
 // res[m, n] or 0), `in` (M x K, rows lda floats apart) rounded into the A
-// image, W from the ring: one leaf (K x N), or with seg < K two (seg x N,
-// then (K - seg) x N: a bilinear's [d1; d2]), each in slabs of kKSlab, at
-// most kRing slabs in all (K <= 256).  `staged`: the A image already holds
-// these rows (the previous product read the same input).  Products of more
-// than kSyncRows rows whose leaves are whole slabs deep (D a multiple of
-// 64) run on wgmma, the rest on mma.sync.  Ends with the block
-// synchronised after its last read of shared memory.
+// image, W from the ring: one leaf or leaf part (K x N), or with seg < K
+// two (seg x N, then (K - seg) x N: a bilinear's [d1; d2], or the CQ
+// attentions' (4D x D) denses as their halves), each padded to 16 values
+// of k and cut into slabs of kKSlab.  At most kChunkSlabs slabs (K <= 256),
+// N <= kRingRows and M <= kRowPass (every product at D <= 128, T <= 128
+// but the CQ denses at D=128) it is one product on slabs that are all in
+// the ring at once; past that the general kernel tiles it (dense(): the
+// passes of tiled_pass, then apply_sums).  `staged`: the A image already holds these
+// rows (the previous product read the same input).  Products of more than
+// kSyncRows rows whose leaves are whole slabs deep (D a multiple of 64) run
+// on wgmma, the rest on mma.sync.  Ends with the block synchronised after
+// its last read of shared memory.
 template <class Epi>
 __device__ __noinline__ void dense_bf16(const float* in, int lda, int M, int K,
                                         int N, const float* bias, const float* res,
@@ -1140,7 +1437,8 @@ __device__ __noinline__ void dense_bf16(const float* in, int lda, int M, int K,
                                         Epi epi) {
   const int k1 = K - seg, kp0 = up16(seg), kp1 = up16(k1), a_kw = kp0 + kp1;
   const int n0 = (kp0 + kKSlab - 1) / kKSlab, n1 = (kp1 + kKSlab - 1) / kKSlab;
-  const int ns = n0 + n1, s0 = x.slab;
+  const int ns = n0 + n1;
+  const int s0 = x.slab;
   x.slab = s0 + ns;
   if (!staged) {
     stage_image(x.img, in, lda, M, seg, k1);
@@ -1152,12 +1450,16 @@ __device__ __noinline__ void dense_bf16(const float* in, int lda, int M, int K,
   const bool whole = kp0 % kKSlab == 0 && kp1 % kKSlab == 0 && M > kSyncRows;
   const int shape = whole ? (M > 64 ? 8 : 0) + ns : 0;
   switch (shape) {
-    case 1: wgmma_products<64, 1>(x, s0, M, N, bias, res, epi); return;
-    case 2: wgmma_products<64, 2>(x, s0, M, N, bias, res, epi); return;
-    case 4: wgmma_products<64, 4>(x, s0, M, N, bias, res, epi); return;
-    case 9: wgmma_products<128, 1>(x, s0, M, N, bias, res, epi); return;
-    case 10: wgmma_products<128, 2>(x, s0, M, N, bias, res, epi); return;
-    case 12: wgmma_products<128, 4>(x, s0, M, N, bias, res, epi); return;
+#define HUAL_WGMMA(R, S)                                                          \
+  wgmma_products<R, S>(x, s0, 0, M, 0, N, bias, res, nullptr, true, epi); \
+  return;
+    case 1: HUAL_WGMMA(64, 1)
+    case 2: HUAL_WGMMA(64, 2)
+    case 4: HUAL_WGMMA(64, 4)
+    case 9: HUAL_WGMMA(128, 1)
+    case 10: HUAL_WGMMA(128, 2)
+    case 12: HUAL_WGMMA(128, 4)
+#undef HUAL_WGMMA
     default: break;
   }
   // slab i: the first leaf's, then the second's
@@ -1166,18 +1468,57 @@ __device__ __noinline__ void dense_bf16(const float* in, int lda, int M, int K,
     kw = min(kKSlab, (i < n0 ? kp0 : kp1) - k0);
     ka = (i < n0 ? 0 : kp0) + k0;
     b = ring_slot(x, s0 + i);
-  }, M, N, bias, res, epi);
+  }, 0, M, M, 0, N, N, bias, res, nullptr, epi);
   __syncthreads();  // the A image and the slots are free
   ring_refill(x, s0, ns);
+}
+
+// The tiled route of a product of two activations (gemm_bf16): the sums
+// into x.part (M x N), in tiles of x.cq_tile rows and columns, k in chunks
+// of cq_tile, each chunk's images staged in turn and every chunk after the
+// first adding the sums the one before left.  Ends with the block
+// synchronised after its last store to x.part.
+template <bool kBNT>
+__device__ __noinline__ void gemm_bf16_tiled(int M, int N, int K, Mat a, Mat b,
+                                             const Ctx& x) {
+  const int tile = x.cq_tile;
+  float* const part = x.part;
+  uint16_t* bimg = x.img + tile * tile;
+  for (int r0 = 0; r0 < M; r0 += tile)
+    for (int c0 = 0; c0 < N; c0 += tile)
+      for (int k0 = 0; k0 < K; k0 += tile) {
+        const int mn = min(tile, M - r0), nn = min(tile, N - c0), kk = min(tile, K - k0);
+        const int kp = up16(kk);
+        stage_image(x.img, a.p + static_cast<long>(r0) * a.ld + k0, a.ld, mn, kk, 0);
+        if (kBNT)
+          stage_image(bimg, b.p + static_cast<long>(c0) * b.ld + k0, b.ld, nn, kk, 0);
+        else
+          stage_image_t(bimg, b.p + static_cast<long>(k0) * b.ld + c0, b.ld, nn, kk);
+        __syncthreads();
+        sync_products(x.img, kp, 1, [&](int, const uint16_t*& bp, int& kw, int& ka) {
+          bp = bimg;
+          kw = kp;
+          ka = 0;
+        }, r0, mn, M, c0, nn, N, nullptr, nullptr, k0 > 0 ? part : nullptr,
+           [=](int m, int n, float v, float) { part[static_cast<long>(m) * N + n] = v; });
+        __syncthreads();  // the images are free
+      }
 }
 
 // A product of two activations on the bf16 path (the CQ attention's):
 // epi(m, n, sum_k A[m, k] * B[k, n], 0), A row-major M x K, B row-major
 // K x N or with kBNT stored N x K, both rounded into images; on mma.sync.
-// Ends with the block synchronised after its last read of shared memory.
-template <bool kBNT, class Epi>
+// Resident (x.cq_tile 0): one image each; tiled: gemm_bf16_tiled, then the
+// epilogue reads the sums back.  Ends with the block synchronised after its
+// last read of shared memory.
+template <bool kBNT, bool kGen, class Epi>
 __device__ __noinline__ void gemm_bf16(int M, int N, int K, Mat a, Mat b,
                                        const Ctx& x, Epi epi) {
+  if (kGen && x.cq_tile > 0) {
+    gemm_bf16_tiled<kBNT>(M, N, K, a, b, x);
+    apply_sums(M, N, nullptr, x, epi);
+    return;
+  }
   const int kp = up16(K);
   uint16_t* bimg = x.img + static_cast<long>(bf16_rows(M)) * kp;
   stage_image(x.img, a.p, a.ld, M, K, 0);
@@ -1190,7 +1531,8 @@ __device__ __noinline__ void gemm_bf16(int M, int N, int K, Mat a, Mat b,
     bp = bimg;
     kw = kp;
     ka = 0;
-  }, M, N, nullptr, nullptr, [&](int m, int n, float v, float) { epi(m, n, v, 0.0f); });
+  }, 0, M, M, 0, N, N, nullptr, nullptr, nullptr,
+     [&](int m, int n, float v, float) { epi(m, n, v, 0.0f); });
   __syncthreads();  // the images are free
 }
 
@@ -1198,38 +1540,66 @@ __device__ __noinline__ void gemm_bf16(int M, int N, int K, Mat a, Mat b,
 // x is (M, K) row-major with rows lda floats apart, d.w (K, N), d.b (N,)
 // or null, res (M, N) or null.  The bf16 path reads the weight from the
 // ring (see dense_bf16 for seg and staged).
-template <bool kBf16, class Epi>
+template <bool kBf16, bool kGen, class Epi>
 __device__ void dense(const float* in, int lda, int M, int K, int N, Dense d,
                       const Ctx& x, Epi epi, const float* res = nullptr,
                       int seg = 0, bool staged = false) {
-  if constexpr (kBf16)
-    dense_bf16(in, lda, M, K, N, d.b, res, seg > 0 ? seg : K, staged, x, epi);
+  if constexpr (kBf16) {
+    seg = seg > 0 ? seg : K;
+    const int slabs = (up16(seg) + kKSlab - 1) / kKSlab + (up16(K - seg) + kKSlab - 1) / kKSlab;
+    if (kGen && (slabs > kChunkSlabs || N > kRingRows || M > kRowPass)) {
+      // the tiled route, called from the stage itself: one call level less
+      // between the stage and the products
+      for (int it = 0, n = tiled_passes(M, K, N, seg); it < n; ++it)
+        tiled_pass(in, lda, M, K, N, d.b, seg, it, x);
+      __syncthreads();  // the sums are in x.part (wgmma stores after its barrier)
+      apply_sums(M, N, res, x, epi);
+    } else {
+      dense_bf16(in, lda, M, K, N, d.b, res, seg, staged, x, epi);
+    }
+  }
   else
     gemm_f64<false>(M, N, K, Mat{in, lda}, Mat{d.w, N}, d.b, res, x, epi);
 }
 
 // A product of two activations (see gemm_f64 and gemm_bf16).
-template <bool kBNT, bool kBf16, class Epi>
+template <bool kBNT, bool kBf16, bool kGen, class Epi>
 __device__ void gemm(int M, int N, int K, Mat a, Mat b, const float* bias,
                      const float* res, const Ctx& x, Epi epi) {
   if constexpr (kBf16)
-    gemm_bf16<kBNT>(M, N, K, a, b, x, epi);
+    gemm_bf16<kBNT, kGen>(M, N, K, a, b, x, epi);
   else
     gemm_f64<kBNT>(M, N, K, a, b, bias, res, x, epi);
 }
 
+// The depthwise taps of conv_block one channel a thread, for D not a
+// multiple of 4 (rows not 16-byte aligned); out of line.
+__device__ __noinline__ void depthwise_scalar(const float* h, const float* f, float* acc,
+                                              int L, int D) {
+  for (int e = threadIdx.x; e < L * D; e += blockDim.x) {
+    const int t = e / D, c = e - t * D;
+    float a = 0.0f;
+    for (int k = 0; k < kConvK; ++k) {
+      const int s = t + k - kConvK / 2;
+      if (s >= 0 && s < L) a += h[s * D + c] * f[k * D + c];
+    }
+    acc[e] = a;
+  }
+}
+
 // x (L x D) in place: kConvLayers x {LN -> depthwise k=7 SAME, zero padding
 // at both ends of L, mask ignored -> pointwise + bias -> relu -> + residual}.
-template <bool kBf16>
+template <bool kBf16, bool kGen>
 __device__ __noinline__ void conv_block(float* xs, int L, const Ctx& x, const ConvBlockW& w,
                            float* h, float* acc) {
   const int D = x.D;
   for (int i = 0; i < kConvLayers; ++i) {
-    layer_norm(xs, h, D, L, D, w.ln[i]);
+    ln<kGen>(xs, h, D, L, D, w.ln[i]);
     __syncthreads();
     const float* f = w.dw[i];
     const int nq = D / 4;  // four channels a thread
-    for (int e = threadIdx.x; e < L * nq; e += blockDim.x) {
+    if (kGen && D % 4 != 0) depthwise_scalar(h, f, acc, L, D);
+    for (int e = threadIdx.x; (!kGen || D % 4 == 0) && e < L * nq; e += blockDim.x) {
       const int t = e / nq, c = (e - t * nq) * 4;
       float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       for (int k = 0; k < kConvK; ++k) {
@@ -1245,7 +1615,7 @@ __device__ __noinline__ void conv_block(float* xs, int L, const Ctx& x, const Co
       st4(acc + t * D + c, a);
     }
     __syncthreads();
-    dense<kBf16>(acc, D, L, D, D, w.pw[i], x, [=](int m, int n, float v, float r) {
+    dense<kBf16, kGen>(acc, D, L, D, D, w.pw[i], x, [=](int m, int n, float v, float r) {
       xs[m * D + n] = fmaxf(v, 0.0f) + r;
     }, xs);
     __syncthreads();
@@ -1266,6 +1636,24 @@ __device__ void copy_rows(float* dst, int ldd, const float* src, int rows,
     for (int e = threadIdx.x; e < rows * cols; e += kThreads) {
       const int r = e / cols, c = e - r * cols;
       cp_async<4>(dst + r * ldd + c, src + static_cast<long>(r) * cols + c, true);
+    }
+  }
+}
+
+// Starts copying `rows` rows of `cols` floats (src rows lds apart) to dst
+// (rows ldd apart) with cp.async: the general kernel's copy_rows.
+__device__ void copy_cols(float* dst, int ldd, const float* src, int lds, int rows,
+                          int cols) {
+  if (rows_aligned(src, lds, cols) && ldd % 4 == 0) {
+    const int q = cols / 4;
+    for (int e = threadIdx.x; e < rows * q; e += kThreads) {
+      const int r = e / q, c = (e - r * q) * 4;
+      cp_async<16>(dst + r * ldd + c, src + static_cast<long>(r) * lds + c, true);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * cols; e += kThreads) {
+      const int r = e / cols, c = e - r * cols;
+      cp_async<4>(dst + r * ldd + c, src + static_cast<long>(r) * lds + c, true);
     }
   }
 }
@@ -1345,11 +1733,414 @@ __device__ __noinline__ void gemm_smem(int nb, int M, int N, int K,
 // Multi-head attention over q (Tq x D), k and v (Tk x D):
 //   S_h = (q_h k_h^T) * scale + (1 - fm[i] * tm[j]) * -1e30
 //   out[:, h*hd:(h+1)*hd] = softmax_rows(S_h) @ v_h
+// The general kernel's attention over one head's scores in the workspace
+// at a time (SmemLayout's kStreamed): the staged products, the scale and
+// mask, the softmax there.
+__device__ __noinline__ void attention_f64_streamed(const float* q, const float* k,
+                                                    const float* v, const float* fm,
+                                                    const float* tm, int Tq, int Tk,
+                                                    const Ctx& x, float scale,
+                                                    float* out) {
+  const int D = x.D, H = x.H, hd = D / H;
+  float* S = x.S;
+  for (int h = 0; h < H; ++h) {
+    gemm_f64<true>(Tq, Tk, hd, Mat{q + h * hd, D}, Mat{k + h * hd, D}, nullptr,
+                   nullptr, x, [=](int i, int j, float acc, float) { S[i * Tk + j] = acc; });
+    __syncthreads();
+    // the scale and mask apart: the product's epilogue only stores
+    for (int e = threadIdx.x; e < Tq * Tk; e += kThreads) {
+      const int i = e / Tk;
+      S[e] = S[e] * scale + (1.0f - fm[i] * tm[e - i * Tk]) * kMask;
+    }
+    __syncthreads();
+    softmax_rows(S, Tq, Tk, Tk);
+    __syncthreads();
+    gemm_f64<false>(Tq, hd, Tk, Mat{S, Tk}, Mat{v + h * hd, D}, nullptr, nullptr,
+                    x, [=](int i, int c, float acc, float) {
+                      out[i * D + h * hd + c] = acc;
+                    });
+    __syncthreads();
+  }
+}
+
+// The attention's route (SmemLayout): kResident copies q, k and v of every
+// head to shared memory once, kGrouped those of x.heads heads at a time;
+// then x.heads heads at a time get their scores, the masked softmax over
+// the real Tk, and p.v, all in shared memory.  kStreamed: one head at a
+// time, the scores in the workspace (x.S) through the staged products, the
+// softmax there; the same sums in the same order, so the same bits.  An
+// all-padding `from` row gets -1e30 on every score: the finite part is
+// absorbed and the row attends uniformly over the real Tk.
+__device__ __noinline__ void attention_f64(const float* q, const float* k,
+                                           const float* v, const float* fm,
+                                           const float* tm, int Tq, int Tk,
+                                           const Ctx& x, float scale, float* out) {
+  if (x.attn == kStreamed) {
+    attention_f64_streamed(q, k, v, fm, tm, Tq, Tk, x, scale, out);
+    return;
+  }
+  const int D = x.D, H = x.H, hd = D / H, lds = x.lds, G = x.heads;
+  const int staged = x.attn == kResident ? H : G;  // heads a copy brings in
+  const int w = staged * hd, ldq = w + 4, ldv = w + 8;
+  float* Qs = x.stage;  // the stages are free between products
+  float* Ks = Qs + x.Lm * ldq;
+  float* Vs = Ks + x.Lm * ldq;
+  float* S = x.attn == kResident ? x.S : Vs + x.Lm * ldv;
+  const int s_bs = Tq * lds;  // one head's scores
+  for (int hs = 0; hs < H; hs += staged) {
+    copy_cols(Qs, ldq, q + hs * hd, D, Tq, w);
+    copy_cols(Ks, ldq, k + hs * hd, D, Tk, w);
+    copy_cols(Vs, ldv, v + hs * hd, D, Tk, w);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int h0 = hs; h0 < hs + staged; h0 += G) {
+      const int c = (h0 - hs) * hd;  // the group's first staged column
+      // the scale multiplies the f32 sum, after the product, as in JAX
+      gemm_smem<true>(G, Tq, Tk, hd, Qs + c, hd, ldq, Ks + c, hd, ldq,
+                      [=](int g, int i, int j, float acc) {
+                        S[g * s_bs + i * lds + j] =
+                            acc * scale + (1.0f - fm[i] * tm[j]) * kMask;
+                      });
+      __syncthreads();
+      softmax_rows(S, G * Tq, Tk, lds);
+      __syncthreads();
+      gemm_smem<false>(G, Tq, hd, Tk, S, s_bs, lds, Vs + c, hd, ldv,
+                       [=](int g, int i, int cc, float acc) {
+                         out[i * D + (h0 + g) * hd + cc] = acc;
+                       });
+      __syncthreads();
+    }
+  }
+}
+
+// Rounds rows [0, L) of G heads' columns of src (rows ld floats apart, head
+// h's columns [hd h, hd h + hd)) into images of rows of `pitch` values:
+// head h to img + h * head, row r at r * pitch; zeros in columns [hd,
+// up16(hd)) and rows [L, up16(L)).
+__device__ __forceinline__ void stage_head_cols(uint16_t* img, const float* src, int L,
+                                                int ld, int hd,
+                            int G, int pitch, long head) {
+  constexpr int kBatch = 4;  // values of 4 a thread loads before it stores
+  const int q4 = up16(hd) / 4, L16 = up16(L), total = G * L16 * q4;
+  const bool vec = rows_aligned(src, ld, hd);
+  for (int e0 = threadIdx.x; e0 < total; e0 += kBatch * kThreads) {
+    float4 v[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int e = e0 + i * kThreads;
+      const int c = e % q4 * 4, r = e / q4 % L16, h = e / (q4 * L16);
+      v[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (e >= total || r >= L) continue;
+      const float* p = src + static_cast<long>(r) * ld + h * hd + c;
+      if (vec) {
+        if (c < hd) v[i] = ld4(p);
+      } else {
+        v[i] = make_float4(c < hd ? p[0] : 0.0f, c + 1 < hd ? p[1] : 0.0f,
+                           c + 2 < hd ? p[2] : 0.0f, c + 3 < hd ? p[3] : 0.0f);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int e = e0 + i * kThreads;
+      if (e >= total) continue;
+      const int c = e % q4 * 4, r = e / q4 % L16, h = e / (q4 * L16);
+      *reinterpret_cast<uint2*>(img + h * head + r * pitch + c) =
+          make_uint2(bf16x2(v[i].x, v[i].y), bf16x2(v[i].z, v[i].w));
+    }
+  }
+}
+
+// The pieces of a warp's attention job on the bf16 path (16 query rows,
+// r0 to r0 + 15 of the Q image; lane l holds rows r0 + l/4 and r0 + l/4 +
+// 8).  s[f] += q.k^T over image columns [0, kd) (a multiple of 16) against
+// nkp 16-key blocks of the K image: a score row of up to 8 kF keys in
+// registers, the accumulators' layout the A fragments' of p.v.
+template <int kF>
+__device__ __forceinline__ void qk_scores(float (&s)[kF][4],
+                                          const uint16_t* Qh, const uint16_t* Kh,
+                                          int r0, int nkp, int kd, int pitch) {
+  const int lane = threadIdx.x % kWarp;
+  for (int kc = 0; kc < kd; kc += 16) {
+    uint32_t a[4];
+    ldsm_x4(a, Qh + (r0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * pitch + kc +
+                   8 * (lane >> 4));
+#pragma unroll
+    for (int fp = 0; fp < kF / 2; ++fp) {
+      if (fp >= nkp) break;  // warp-uniform
+      // matrices: keys 0-7 dims 0-7, keys 0-7 dims 8-15, keys 8-15 dims
+      // 0-7, keys 8-15 dims 8-15 of the block
+      uint32_t b[4];
+      ldsm_x4(b, Kh + (16 * fp + (lane & 7) + 8 * (lane >> 4)) * pitch + kc +
+                     8 * ((lane >> 3) & 1));
+      hmma4(s[2 * fp][0], s[2 * fp][1], s[2 * fp][2], s[2 * fp][3], a, b[0], b[1]);
+      hmma4(s[2 * fp + 1][0], s[2 * fp + 1][1], s[2 * fp + 1][2], s[2 * fp + 1][3],
+            a, b[2], b[3]);
+    }
+  }
+}
+
+// The scale and mask on the scores against keys j < nk (tm their masks;
+// f0, f1 the two rows' `from` masks): the scale multiplies the f32 sum, as
+// in JAX; the other keys leave the softmax (-inf).  m0, m1: the rows'
+// maxima over these keys.
+template <int kF>
+__device__ __forceinline__ void mask_scores(float (&s)[kF][4],
+                                            const float* tm, int nk, int nkp,
+                                            float f0, float f1, float scale,
+                                            float& m0, float& m1) {
+  const int t = threadIdx.x & 3;
+  m0 = -INFINITY;
+  m1 = -INFINITY;
+#pragma unroll
+  for (int f = 0; f < kF; ++f) {
+    if (f >= 2 * nkp) break;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int j = 8 * f + 2 * t + c;
+      if (j < nk) {
+        const float tj = tm[j];
+        s[f][c] = s[f][c] * scale + (1.0f - f0 * tj) * kMask;
+        s[f][2 + c] = s[f][2 + c] * scale + (1.0f - f1 * tj) * kMask;
+      } else {  // padding: out of the softmax
+        s[f][c] = -INFINITY;
+        s[f][2 + c] = -INFINITY;
+      }
+      m0 = fmaxf(m0, s[f][c]);
+      m1 = fmaxf(m1, s[f][2 + c]);
+    }
+  }
+  for (int o = 1; o < 4; o <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(kFull, m0, o));
+    m1 = fmaxf(m1, __shfl_xor_sync(kFull, m1, o));
+  }
+}
+
+// s = expf(s - m), summed over the row's keys into sum0, sum1 (the quad's
+// lanes reduced).
+template <int kF>
+__device__ __forceinline__ void exp_scores(float (&s)[kF][4], int nkp,
+                                           float m0, float m1, float& sum0,
+                                           float& sum1) {
+  sum0 = 0.0f;
+  sum1 = 0.0f;
+#pragma unroll
+  for (int f = 0; f < kF; ++f) {
+    if (f >= 2 * nkp) break;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      s[f][c] = expf(s[f][c] - m0);
+      s[f][2 + c] = expf(s[f][2 + c] - m1);
+      sum0 += s[f][c];
+      sum1 += s[f][2 + c];
+    }
+  }
+  for (int o = 1; o < 4; o <<= 1) {
+    sum0 += __shfl_xor_sync(kFull, sum0, o);
+    sum1 += __shfl_xor_sync(kFull, sum1, o);
+  }
+}
+
+template <int kF>
+__device__ __forceinline__ void divide_scores(float (&s)[kF][4], int nkp,
+                                              float sum0, float sum1) {
+#pragma unroll
+  for (int f = 0; f < kF; ++f) {
+    if (f >= 2 * nkp) break;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      s[f][c] = s[f][c] / sum0;
+      s[f][2 + c] = s[f][2 + c] / sum1;
+    }
+  }
+}
+
+// p.v with p rounded from s (nkp key blocks) and v from the V image's
+// columns [0, up16(cols)): out[row * D + col] for rows r0 + l/4 (+ 8) below
+// Tq and col < cols, or with `add` added to what is there.
+template <int kF>
+__device__ __forceinline__ void pv_product(const float (&s)[kF][4],
+                                           const uint16_t* Vh, int nkp, int cols,
+                                           int pitch, int r0, int Tq, float* out,
+                                           int D, bool add) {
+  const int lane = threadIdx.x % kWarp, g = lane >> 2, t = lane & 3;
+  for (int dc = 0; dc < up16(cols); dc += 16) {
+    float o[2][4] = {};
+#pragma unroll
+    for (int kb = 0; kb < kF / 2; ++kb) {
+      if (kb >= nkp) break;
+      const uint32_t a[4] = {bf16x2(s[2 * kb][0], s[2 * kb][1]),
+                             bf16x2(s[2 * kb][2], s[2 * kb][3]),
+                             bf16x2(s[2 * kb + 1][0], s[2 * kb + 1][1]),
+                             bf16x2(s[2 * kb + 1][2], s[2 * kb + 1][3])};
+      // transposed: keys 0-7 dims 0-7, keys 8-15 dims 0-7, keys 0-7 dims
+      // 8-15, keys 8-15 dims 8-15 of the block
+      uint32_t b[4];
+      ldsm_x4_t(b, Vh + (16 * kb + (lane & 7) + 8 * ((lane >> 3) & 1)) * pitch +
+                       dc + 8 * (lane >> 4));
+      hmma4(o[0][0], o[0][1], o[0][2], o[0][3], a, b[0], b[1]);
+      hmma4(o[1][0], o[1][1], o[1][2], o[1][3], a, b[2], b[3]);
+    }
+#pragma unroll
+    for (int f = 0; f < 2; ++f)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int row = r0 + g + 8 * hh, col = dc + 8 * f + 2 * t + c;
+          if (row < Tq && col < cols) {
+            float* p = out + row * D + col;
+            *p = add ? *p + o[f][2 * hh + c] : o[f][2 * hh + c];
+          }
+        }
+  }
+}
+
+// Multi-head attention on the bf16 path over more than kKeyChunk keys, or
+// where no head's images fit: one head and one block of kQBlock query rows
+// at a time, a warp a 16-row job, the keys in chunks of up to kStreamKeys
+// (64: a shorter score row than the resident route's, for registers) and
+// the head dims in chunks of up to kDimChunk, each chunk's images
+// staged in turn (streamed_attention_bytes).  Over one key chunk the
+// softmax is the resident route's; over several, a first pass takes each
+// row's running maximum and sum (rescaled as the maximum grows), a second
+// recomputes the scores, divides, and adds each chunk's p.v to the output.
+__device__ __noinline__ void attention_bf16_streamed(const float* q, const float* k,
+                                                     const float* v, const float* fm,
+                                                     const float* tm, int Tq, int Tk,
+                                                     const Ctx& x, float scale,
+                                                     float* out) {
+  const int D = x.D, H = x.H, hd = D / H, ec = imin(up16(hd), kDimChunk),
+            pitch = ec + 8;
+  uint16_t* Qs = x.img;
+  uint16_t* Ks = Qs + kQBlock * pitch;
+  uint16_t* Vs = Ks + kStreamKeys * pitch;
+  const int warp = threadIdx.x / kWarp, g = (threadIdx.x % kWarp) >> 2;
+  const int r0 = 16 * warp;  // the warp's rows in the block
+  const int chunks = (Tk + kStreamKeys - 1) / kStreamKeys, dims = (hd + ec - 1) / ec;
+  for (int h = 0; h < H; ++h)
+    for (int rb = 0; rb < Tq; rb += kQBlock) {
+      const int rows = min(kQBlock, Tq - rb);
+      const bool live = r0 < rows;  // warp-uniform
+      const int i0 = rb + r0 + g, i1 = i0 + 8;
+      const float f0 = i0 < Tq ? fm[i0] : 0.0f, f1 = i1 < Tq ? fm[i1] : 0.0f;
+      float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+      for (int pass = chunks > 1 ? 0 : 1; pass < 2; ++pass)
+        for (int c = 0; c < chunks; ++c) {
+          const int j0 = c * kStreamKeys, nk = min(kStreamKeys, Tk - j0), nkp = (nk + 15) / 16;
+          float s[kStreamFrags][4];
+#pragma unroll
+          for (int f = 0; f < kStreamFrags; ++f)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) s[f][i] = 0.0f;
+          for (int e = 0; e < dims; ++e) {
+            const int e0 = e * ec, cols = min(ec, hd - e0);
+            __syncthreads();  // the images are free
+            stage_head_cols(Qs, q + static_cast<long>(rb) * D + h * hd + e0, rows, D, cols,
+                        1, pitch, 0);
+            stage_head_cols(Ks, k + static_cast<long>(j0) * D + h * hd + e0, nk, D, cols,
+                        1, pitch, 0);
+            __syncthreads();
+            if (live) qk_scores(s, Qs, Ks, r0, nkp, up16(cols), pitch);
+          }
+          if (live) {
+            float c0, c1, a0, a1;
+            mask_scores(s, tm + j0, nk, nkp, f0, f1, scale, c0, c1);
+            if (pass == 0) {  // the running maximum and sum
+              const float n0 = fmaxf(m0, c0), n1 = fmaxf(m1, c1);
+              exp_scores(s, nkp, n0, n1, a0, a1);
+              l0 = l0 * expf(m0 - n0) + a0;
+              l1 = l1 * expf(m1 - n1) + a1;
+              m0 = n0;
+              m1 = n1;
+            } else if (chunks == 1) {
+              exp_scores(s, nkp, c0, c1, l0, l1);
+              divide_scores(s, nkp, l0, l1);
+            } else {
+              exp_scores(s, nkp, m0, m1, a0, a1);
+              divide_scores(s, nkp, l0, l1);
+            }
+          }
+          if (pass == 0) continue;
+          for (int e = 0; e < dims; ++e) {
+            const int e0 = e * ec, cols = min(ec, hd - e0);
+            __syncthreads();  // the images are free
+            stage_head_cols(Vs, v + static_cast<long>(j0) * D + h * hd + e0, nk, D, cols,
+                        1, pitch, 0);
+            __syncthreads();
+            if (live)
+              pv_product(s, Vs, nkp, cols, pitch, r0, rows,
+                         out + static_cast<long>(rb) * D + h * hd + e0, D, c > 0);
+          }
+        }
+    }
+  __syncthreads();  // the images are free
+}
+
+// Multi-head attention on the bf16 path, the function of attention_f64:
+// q, k and v of x.heads heads at a time (all of them where they fit)
+// rounded into per-head images (rows of up16(hd) values and 8 of padding,
+// so ldmatrix is free of bank conflicts), then one warp per (head, 16 query
+// rows): q.k^T on mma.sync into registers (a row of up to kKeyChunk keys),
+// the scale and mask, the softmax over the real Tk in registers (a row's
+// values lie in the 4 lanes of a quad), and p.v with p rounded as the A
+// fragments: the scores' accumulator layout is the A fragment layout.  More
+// keys, or no head that fits, stream (attention_bf16_streamed).
+template <bool kGen>
+__device__ __noinline__ void attention_bf16(const float* q, const float* k,
+                                            const float* v, const float* fm,
+                                            const float* tm, int Tq, int Tk,
+                                            const Ctx& x, float scale, float* out) {
+  if (kGen && (Tk > kKeyChunk || x.heads == 0)) {
+    attention_bf16_streamed(q, k, v, fm, tm, Tq, Tk, x, scale, out);
+    return;
+  }
+  const int D = x.D, H = x.H, G = x.heads, hd = D / H, pitch = up16(hd) + 8;
+  const long head = static_cast<long>(x.qkv_rows) * pitch;
+  uint16_t* Qs = x.img;
+  uint16_t* Ks = Qs + G * head;
+  uint16_t* Vs = Ks + G * head;
+  const int warp = threadIdx.x / kWarp, g = (threadIdx.x % kWarp) >> 2;
+  const int nqt = (Tq + 15) / 16, nkp = (Tk + 15) / 16;  // 16-key blocks
+  for (int h0 = 0; h0 < H; h0 += G) {
+    stage_head_cols(Qs, q + h0 * hd, Tq, D, hd, G, pitch, head);
+    stage_head_cols(Ks, k + h0 * hd, Tk, D, hd, G, pitch, head);
+    stage_head_cols(Vs, v + h0 * hd, Tk, D, hd, G, pitch, head);
+    __syncthreads();
+    for (int job = warp; job < G * nqt; job += kWarps) {
+      const int h = job / nqt, r0 = job % nqt * 16;
+      float s[kMaxKeyFrags][4];
+#pragma unroll
+      for (int f = 0; f < kMaxKeyFrags; ++f)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[f][i] = 0.0f;
+      qk_scores(s, Qs + h * head, Ks + h * head, r0, nkp, up16(hd), pitch);
+      // rows r0 + g and r0 + g + 8
+      const int i0 = r0 + g, i1 = i0 + 8;
+      const float f0 = i0 < Tq ? fm[i0] : 0.0f, f1 = i1 < Tq ? fm[i1] : 0.0f;
+      float m0, m1, sum0, sum1;
+      mask_scores(s, tm, Tk, nkp, f0, f1, scale, m0, m1);
+      exp_scores(s, nkp, m0, m1, sum0, sum1);
+      divide_scores(s, nkp, sum0, sum1);
+      pv_product(s, Vs + h * head, nkp, hd, pitch, r0, Tq, out + (h0 + h) * hd, D,
+                 false);
+    }
+    __syncthreads();  // the images are free
+  }
+}
+
+// The resident kernel's attention on the f64 path (every head's q, k and v
+// staged at once), kept apart from the general one (attention_f64): shared,
+// the general code timed slower in the resident kernel, where the bf16
+// path's shared attention did not.  Multi-head attention over
+// q (Tq x D), k and v (Tk x D):
+//   S_h = (q_h k_h^T) * scale + (1 - fm[i] * tm[j]) * -1e30
+//   out[:, h*hd:(h+1)*hd] = softmax_rows(S_h) @ v_h
 // q, k and v are copied to shared memory once; then x.heads heads at a
 // time: their scores, the masked softmax over the real Tk, and p.v, all in
 // shared memory.  An all-padding `from` row gets -1e30 on every score: the
 // finite part is absorbed and the row attends uniformly over the real Tk.
-__device__ __noinline__ void attention_f64(const float* q, const float* k,
+__device__ __noinline__ void attention_f64_resident(const float* q, const float* k,
                                            const float* v, const float* fm,
                                            const float* tm, int Tq, int Tk,
                                            const Ctx& x, float scale, float* out) {
@@ -1384,192 +2175,34 @@ __device__ __noinline__ void attention_f64(const float* q, const float* k,
   }
 }
 
-// Rounds the rows of src (L x D, row-major) head by head into images of
-// x.qkv_rows rows of `pitch` values: head h's columns [hd h, hd h + hd)
-// go to img + h * head, row r at r * pitch; zeros in columns [hd, up16(hd))
-// and rows [L, up16(L)).
-__device__ void stage_heads(uint16_t* img, const float* src, int L, int D, int H,
-                            int pitch, long head) {
-  constexpr int kBatch = 4;  // values of 4 a thread loads before it stores
-  const int hd = D / H, q4 = up16(hd) / 4, L16 = up16(L), total = H * L16 * q4;
-  const bool vec = hd % 4 == 0;
-  for (int e0 = threadIdx.x; e0 < total; e0 += kBatch * kThreads) {
-    float4 v[kBatch];
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      const int e = e0 + i * kThreads;
-      const int c = e % q4 * 4, r = e / q4 % L16, h = e / (q4 * L16);
-      v[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (e >= total || r >= L) continue;
-      const float* p = src + static_cast<long>(r) * D + h * hd + c;
-      if (vec) {
-        if (c < hd) v[i] = ld4(p);
-      } else {
-        v[i] = make_float4(c < hd ? p[0] : 0.0f, c + 1 < hd ? p[1] : 0.0f,
-                           c + 2 < hd ? p[2] : 0.0f, c + 3 < hd ? p[3] : 0.0f);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      const int e = e0 + i * kThreads;
-      if (e >= total) continue;
-      const int c = e % q4 * 4, r = e / q4 % L16, h = e / (q4 * L16);
-      *reinterpret_cast<uint2*>(img + h * head + r * pitch + c) =
-          make_uint2(bf16x2(v[i].x, v[i].y), bf16x2(v[i].z, v[i].w));
-    }
-  }
-}
-
-// Multi-head attention on the bf16 path, the function of attention_f64:
-// q, k and v rounded into per-head images (rows of up16(hd) values and 8
-// of padding, so ldmatrix is free of bank conflicts), then one warp per
-// (head, 16 query rows): q.k^T on mma.sync into registers (a row of up to
-// 112 keys), the scale and mask, the softmax over the real Tk in registers
-// (a row's values lie in the 4 lanes of a quad), and p.v with p rounded as
-// the A fragments: the scores' accumulator layout is the A fragment layout.
-__device__ __noinline__ void attention_bf16(const float* q, const float* k,
-                                            const float* v, const float* fm,
-                                            const float* tm, int Tq, int Tk,
-                                            const Ctx& x, float scale, float* out) {
-  const int D = x.D, H = x.H, hd = D / H, hd16 = up16(hd), pitch = hd16 + 8;
-  const long head = static_cast<long>(x.qkv_rows) * pitch;
-  uint16_t* Qs = x.img;
-  uint16_t* Ks = Qs + H * head;
-  uint16_t* Vs = Ks + H * head;
-  stage_heads(Qs, q, Tq, D, H, pitch, head);
-  stage_heads(Ks, k, Tk, D, H, pitch, head);
-  stage_heads(Vs, v, Tk, D, H, pitch, head);
-  __syncthreads();
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int g = lane >> 2, t = lane & 3;
-  const int nqt = (Tq + 15) / 16, nkp = (Tk + 15) / 16;  // 16-key blocks
-  for (int job = warp; job < H * nqt; job += kWarps) {
-    const int h = job / nqt, r0 = job % nqt * 16;
-    const uint16_t* Qh = Qs + h * head;
-    const uint16_t* Kh = Ks + h * head;
-    const uint16_t* Vh = Vs + h * head;
-    float s[kMaxKeyFrags][4];
-#pragma unroll
-    for (int f = 0; f < kMaxKeyFrags; ++f)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[f][i] = 0.0f;
-    for (int kc = 0; kc < hd16; kc += 16) {
-      uint32_t a[4];
-      ldsm_x4(a, Qh + (r0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * pitch + kc +
-                     8 * (lane >> 4));
-#pragma unroll
-      for (int fp = 0; fp < kMaxKeyFrags / 2; ++fp) {
-        if (fp >= nkp) break;  // warp-uniform
-        // matrices: keys 0-7 dims 0-7, keys 0-7 dims 8-15, keys 8-15 dims
-        // 0-7, keys 8-15 dims 8-15 of the block
-        uint32_t b[4];
-        ldsm_x4(b, Kh + (16 * fp + (lane & 7) + 8 * (lane >> 4)) * pitch + kc +
-                       8 * ((lane >> 3) & 1));
-        hmma4(s[2 * fp][0], s[2 * fp][1], s[2 * fp][2], s[2 * fp][3], a, b[0], b[1]);
-        hmma4(s[2 * fp + 1][0], s[2 * fp + 1][1], s[2 * fp + 1][2], s[2 * fp + 1][3],
-              a, b[2], b[3]);
-      }
-    }
-    // rows r0 + g and r0 + g + 8; the scale multiplies the f32 sum, as in JAX
-    const int i0 = r0 + g, i1 = i0 + 8;
-    const float f0 = i0 < Tq ? fm[i0] : 0.0f, f1 = i1 < Tq ? fm[i1] : 0.0f;
-    float m0 = -INFINITY, m1 = -INFINITY;
-#pragma unroll
-    for (int f = 0; f < kMaxKeyFrags; ++f) {
-      if (f >= 2 * nkp) break;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int j = 8 * f + 2 * t + c;
-        if (j < Tk) {
-          const float tj = tm[j];
-          s[f][c] = s[f][c] * scale + (1.0f - f0 * tj) * kMask;
-          s[f][2 + c] = s[f][2 + c] * scale + (1.0f - f1 * tj) * kMask;
-        } else {  // padding: out of the softmax
-          s[f][c] = -INFINITY;
-          s[f][2 + c] = -INFINITY;
-        }
-        m0 = fmaxf(m0, s[f][c]);
-        m1 = fmaxf(m1, s[f][2 + c]);
-      }
-    }
-    for (int o = 1; o < 4; o <<= 1) {
-      m0 = fmaxf(m0, __shfl_xor_sync(kFull, m0, o));
-      m1 = fmaxf(m1, __shfl_xor_sync(kFull, m1, o));
-    }
-    float sum0 = 0.0f, sum1 = 0.0f;
-#pragma unroll
-    for (int f = 0; f < kMaxKeyFrags; ++f) {
-      if (f >= 2 * nkp) break;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        s[f][c] = expf(s[f][c] - m0);
-        s[f][2 + c] = expf(s[f][2 + c] - m1);
-        sum0 += s[f][c];
-        sum1 += s[f][2 + c];
-      }
-    }
-    for (int o = 1; o < 4; o <<= 1) {
-      sum0 += __shfl_xor_sync(kFull, sum0, o);
-      sum1 += __shfl_xor_sync(kFull, sum1, o);
-    }
-#pragma unroll
-    for (int f = 0; f < kMaxKeyFrags; ++f) {
-      if (f >= 2 * nkp) break;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        s[f][c] = s[f][c] / sum0;
-        s[f][2 + c] = s[f][2 + c] / sum1;
-      }
-    }
-    for (int dc = 0; dc < hd16; dc += 16) {
-      float o[2][4] = {};
-#pragma unroll
-      for (int kb = 0; kb < kMaxKeyFrags / 2; ++kb) {
-        if (kb >= nkp) break;
-        const uint32_t a[4] = {bf16x2(s[2 * kb][0], s[2 * kb][1]),
-                               bf16x2(s[2 * kb][2], s[2 * kb][3]),
-                               bf16x2(s[2 * kb + 1][0], s[2 * kb + 1][1]),
-                               bf16x2(s[2 * kb + 1][2], s[2 * kb + 1][3])};
-        // transposed: keys 0-7 dims 0-7, keys 8-15 dims 0-7, keys 0-7 dims
-        // 8-15, keys 8-15 dims 8-15 of the block
-        uint32_t b[4];
-        ldsm_x4_t(b, Vh + (16 * kb + (lane & 7) + 8 * ((lane >> 3) & 1)) * pitch +
-                         dc + 8 * (lane >> 4));
-        hmma4(o[0][0], o[0][1], o[0][2], o[0][3], a, b[0], b[1]);
-        hmma4(o[1][0], o[1][1], o[1][2], o[1][3], a, b[2], b[3]);
-      }
-#pragma unroll
-      for (int f = 0; f < 2; ++f)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int row = r0 + g + 8 * hh, col = dc + 8 * f + 2 * t + c;
-            if (row < Tq && col < hd) out[row * D + h * hd + col] = o[f][2 * hh + c];
-          }
-    }
-  }
-  __syncthreads();  // the images are free
-}
-
-template <bool kBf16>
+template <bool kBf16, bool kGen>
 __device__ __forceinline__ void attention(const float* q, const float* k,
                                           const float* v, const float* fm,
                                           const float* tm, int Tq, int Tk,
                                           const Ctx& x, float scale, float* out) {
   if constexpr (kBf16)
-    attention_bf16(q, k, v, fm, tm, Tq, Tk, x, scale, out);
-  else
+    attention_bf16<kGen>(q, k, v, fm, tm, Tq, Tk, x, scale, out);
+  else if constexpr (kGen)
     attention_f64(q, k, v, fm, tm, Tq, Tk, x, scale, out);
+  else
+    attention_f64_resident(q, k, v, fm, tm, Tq, Tk, x, scale, out);
 }
 
 struct Scratch {
   float* buf[9];  // Lm x D each
 };
 
+// mix = s_gate * x_val + x_gate * s_val one value a thread, for D not a
+// multiple of 4; out of line.
+__device__ __noinline__ void mix_scalar(float* mix, const float* s_gate, const float* x_val,
+                                        const float* x_gate, const float* s_val, int n) {
+  for (int e = threadIdx.x; e < n; e += blockDim.x)
+    mix[e] = s_gate[e] * x_val[e] + x_gate[e] * s_val[e];
+}
+
 // One dual-attention layer in one direction: from (Tq rows) attends to
 // itself and to `to` (Tk rows); the result goes to dest (Tq x D).
-template <bool kBf16>
+template <bool kBf16, bool kGen>
 __device__ __noinline__ void dual_attn(const float* from, const float* to, const float* fm,
                           const float* tm, int Tq, int Tk, const Ctx& x,
                           const DualW& w, float scale, const Scratch& s,
@@ -1580,35 +2213,36 @@ __device__ __noinline__ void dual_attn(const float* from, const float* to, const
         *fk = s.buf[3], *fv = s.buf[4], *tk = s.buf[5], *tv = s.buf[6],
         *sout = s.buf[7], *xout = s.buf[8];
 
-  layer_norm(from, out, D2, Tq, D, w.ln1);
-  layer_norm(to, ton, D2, Tk, D, w.lnt);
+  ln<kGen>(from, out, D2, Tq, D, w.ln1);
+  ln<kGen>(to, ton, D2, Tk, D, w.lnt);
   __syncthreads();
   auto store = [&](float* y) {
     return [=](int m, int n, float v, float) { y[m * D + n] = v; };
   };
-  dense<kBf16>(out, D2, Tq, D, D, w.query, x, store(qp));
+  dense<kBf16, kGen>(out, D2, Tq, D, D, w.query, x, store(qp));
   // on the bf16 path f_key, f_value and t_value read the A image in place
-  dense<kBf16>(out, D2, Tq, D, D, w.f_key, x, store(fk), nullptr, 0, true);
-  dense<kBf16>(out, D2, Tq, D, D, w.f_value, x, store(fv), nullptr, 0, true);
-  dense<kBf16>(ton, D2, Tk, D, D, w.t_key, x, store(tk));
-  dense<kBf16>(ton, D2, Tk, D, D, w.t_value, x, store(tv), nullptr, 0, true);
+  dense<kBf16, kGen>(out, D2, Tq, D, D, w.f_key, x, store(fk), nullptr, 0, true);
+  dense<kBf16, kGen>(out, D2, Tq, D, D, w.f_value, x, store(fv), nullptr, 0, true);
+  dense<kBf16, kGen>(ton, D2, Tk, D, D, w.t_key, x, store(tk));
+  dense<kBf16, kGen>(ton, D2, Tk, D, D, w.t_value, x, store(tv), nullptr, 0, true);
   __syncthreads();
-  attention<kBf16>(qp, fk, fv, fm, fm, Tq, Tq, x, scale, sout);
-  attention<kBf16>(qp, tk, tv, fm, tm, Tq, Tk, x, scale, xout);
+  attention<kBf16, kGen>(qp, fk, fv, fm, fm, Tq, Tq, x, scale, sout);
+  attention<kBf16, kGen>(qp, tk, tv, fm, tm, Tq, Tk, x, scale, xout);
   __syncthreads();
   float *s_val = qp, *x_val = fk, *s_gate = fv, *x_gate = tk;
-  dense<kBf16>(sout, D, Tq, D, D, w.s_dense, x, store(s_val));
-  dense<kBf16>(xout, D, Tq, D, D, w.x_dense, x, store(x_val));
+  dense<kBf16, kGen>(sout, D, Tq, D, D, w.s_dense, x, store(s_val));
+  dense<kBf16, kGen>(xout, D, Tq, D, D, w.x_dense, x, store(x_val));
   __syncthreads();
-  dense<kBf16>(s_val, D, Tq, D, D, w.s_gate, x, [=](int m, int n, float v, float) {
+  dense<kBf16, kGen>(s_val, D, Tq, D, D, w.s_gate, x, [=](int m, int n, float v, float) {
     s_gate[m * D + n] = sigmoidf(v);
   });
-  dense<kBf16>(x_val, D, Tq, D, D, w.x_gate, x, [=](int m, int n, float v, float) {
+  dense<kBf16, kGen>(x_val, D, Tq, D, D, w.x_gate, x, [=](int m, int n, float v, float) {
     x_gate[m * D + n] = sigmoidf(v);
   });
   __syncthreads();
   float* mix = sout;
-  for (int e = 4 * threadIdx.x; e < Tq * D; e += 4 * blockDim.x) {
+  if (kGen && D % 4 != 0) mix_scalar(mix, s_gate, x_val, x_gate, s_val, Tq * D);
+  for (int e = 4 * threadIdx.x; (!kGen || D % 4 == 0) && e < Tq * D; e += 4 * blockDim.x) {
     const float4 sg = ld4(s_gate + e), xv = ld4(x_val + e), xg = ld4(x_gate + e),
                  sv = ld4(s_val + e);
     st4(mix + e, make_float4(sg.x * xv.x + xg.x * sv.x, sg.y * xv.y + xg.y * sv.y,
@@ -1616,15 +2250,15 @@ __device__ __noinline__ void dual_attn(const float* from, const float* to, const
   }
   __syncthreads();
   float* outputs = cat + D;  // over ton, which is spent
-  dense<kBf16>(mix, D, Tq, D, D, w.guided, x,
+  dense<kBf16, kGen>(mix, D, Tq, D, D, w.guided, x,
         [=](int m, int n, float v, float) { outputs[m * D2 + n] = v; });
   __syncthreads();
   // bilinear_k = out @ d1 + outputs @ d2 + b as one product with K = 2D:
   // [out | outputs] @ [d1; d2] (packed next to each other), summed in f64
   // and rounded once, where the plain version rounds both products
   float *scores = tv, *values = sout;
-  dense<kBf16>(cat, D2, Tq, D2, D, Dense{w.b1d1, w.b1b}, x, store(scores), nullptr, D);
-  dense<kBf16>(cat, D2, Tq, D2, D, Dense{w.b2d1, w.b2b}, x, store(values), nullptr, D,
+  dense<kBf16, kGen>(cat, D2, Tq, D2, D, Dense{w.b1d1, w.b1b}, x, store(scores), nullptr, D);
+  dense<kBf16, kGen>(cat, D2, Tq, D2, D, Dense{w.b2d1, w.b2b}, x, store(values), nullptr, D,
                true);
   __syncthreads();
   // gate: sigmoid(scores*m + -1e30*(1-m)) * values, exactly 0 on padded rows
@@ -1635,12 +2269,12 @@ __device__ __noinline__ void dual_attn(const float* from, const float* to, const
   }
   __syncthreads();
   float* res = fk;
-  dense<kBf16>(gated, D, Tq, D, D, w.dense_1, x,
+  dense<kBf16, kGen>(gated, D, Tq, D, D, w.dense_1, x,
         [=](int m, int n, float v, float r) { res[m * D + n] = v + r; }, from);
   __syncthreads();
-  layer_norm(res, fv, D, Tq, D, w.ln2);
+  ln<kGen>(res, fv, D, Tq, D, w.ln2);
   __syncthreads();
-  dense<kBf16>(fv, D, Tq, D, D, w.dense_2, x,
+  dense<kBf16, kGen>(fv, D, Tq, D, D, w.dense_2, x,
         [=](int m, int n, float v, float r) { dest[m * D + n] = v + r; }, res);
   __syncthreads();
 }
@@ -1652,7 +2286,7 @@ __device__ __noinline__ void dual_attn(const float* from, const float* to, const
 //   out = [x1, c2q, x1*c2q, x1*q2c] @ dense, c2q = score_ @ x2,
 //   q2c = (score_ @ score_t^T) @ x1
 // The four T1 x T2 / T1 x T1 matrices live in the workspace (cqreg).
-template <bool kBf16>
+template <bool kBf16, bool kGen>
 __device__ __noinline__ void cq_attention(const float* x1, const float* x2, const float* m1,
                              const float* m2, int T1, int T2, const Ctx& x,
                              const CQW& w, float* x1wm, float* sub0,
@@ -1667,7 +2301,7 @@ __device__ __noinline__ void cq_attention(const float* x1, const float* x2, cons
   for (int e = threadIdx.x; e < T1 * D; e += blockDim.x)
     x1wm[e] = x1[e] * w.wm[e % D];
   __syncthreads();
-  gemm<true, kBf16>(T1, T2, D, Mat{x1wm, D}, Mat{x2, D}, nullptr, nullptr, x,
+  gemm<true, kBf16, kGen>(T1, T2, D, Mat{x1wm, D}, Mat{x2, D}, nullptr, nullptr, x,
                     [=](int i, int j, float acc, float) {
                       sc[i * T2 + j] = (sub0[i] + sub1[j]) + acc;
                     });
@@ -1714,35 +2348,58 @@ __device__ __noinline__ void cq_attention(const float* x1, const float* x2, cons
   __syncthreads();
   const int D4 = 4 * D;
   // c2q = score_ @ x2 straight into att[:, D:2D] and x1*c2q into att[:, 2D:3D]
-  gemm<false, kBf16>(T1, D, T2, Mat{s_, T2}, Mat{x2, D}, nullptr, nullptr, x,
+  gemm<false, kBf16, kGen>(T1, D, T2, Mat{s_, T2}, Mat{x2, D}, nullptr, nullptr, x,
                      [=](int i, int c, float acc, float) {
                        att[i * D4 + c] = x1[i * D + c];
                        att[i * D4 + D + c] = acc;
                        att[i * D4 + 2 * D + c] = x1[i * D + c] * acc;
                      });
   // score_ @ score_t^T (T1 x T1)
-  gemm<true, kBf16>(T1, T1, T2, Mat{s_, T2}, Mat{st, T2}, nullptr, nullptr, x,
+  gemm<true, kBf16, kGen>(T1, T1, T2, Mat{s_, T2}, Mat{st, T2}, nullptr, nullptr, x,
                     [=](int i, int i2, float acc, float) { m1m[i * T1 + i2] = acc; });
   __syncthreads();
-  gemm<false, kBf16>(T1, D, T1, Mat{m1m, T1}, Mat{x1, D}, nullptr, nullptr, x,
+  gemm<false, kBf16, kGen>(T1, D, T1, Mat{m1m, T1}, Mat{x1, D}, nullptr, nullptr, x,
                      [=](int i, int c, float acc, float) {
                        att[i * D4 + 3 * D + c] = x1[i * D + c] * acc;
                      });
   __syncthreads();
-  if constexpr (kBf16) {
+  if constexpr (kBf16 && !kGen) {
     // two products of K = 2D (the ring holds at most 256 values of k), the
     // second adding the first's sums: the companion images the kernel's
     // two halves apart
-    dense<kBf16>(att, D4, T1, 2 * D, D, w.dense, x,
-                 [=](int m, int n, float v, float) { out[m * D + n] = v; });
+    dense<kBf16, kGen>(att, D4, T1, 2 * D, D, w.dense, x,
+                       [=](int m, int n, float v, float) { out[m * D + n] = v; });
     __syncthreads();
-    dense<kBf16>(att + 2 * D, D4, T1, 2 * D, D, w.dense, x,
-                 [=](int m, int n, float v, float r) { out[m * D + n] = r + v; }, out);
+    dense<kBf16, kGen>(att + 2 * D, D4, T1, 2 * D, D, w.dense, x,
+                       [=](int m, int n, float v, float r) { out[m * D + n] = r + v; },
+                       out);
   } else {
-    dense<kBf16>(att, D4, T1, D4, D, w.dense, x,
-          [=](int m, int n, float v, float) { out[m * D + n] = v; });
+    // on the general bf16 path its two halves are imaged apart (seg 2D) and
+    // run as chunks of k <= 256 (tiled_pass)
+    dense<kBf16, kGen>(att, D4, T1, D4, D, w.dense, x,
+                       [=](int m, int n, float v, float) { out[m * D + n] = v; }, nullptr,
+                       2 * D);
   }
   __syncthreads();
+}
+
+__device__ __noinline__ void add_scalar(float* out, const float* a, const float* b,
+                                        int n) {
+  for (int e = threadIdx.x; e < n; e += blockDim.x) out[e] = a[e] + b[e];
+}
+
+// out[e] = a[e] + b[e] for e < n: four a thread where `vec` (D a multiple
+// of 4: every row 16-byte aligned), else one (add_scalar, out of line).
+__device__ __forceinline__ void add_rows(float* out, const float* a, const float* b,
+                                         int n, bool vec) {
+  if (!vec) {
+    add_scalar(out, a, b, n);
+    return;
+  }
+  for (int e = 4 * threadIdx.x; e < n; e += 4 * blockDim.x) {
+    const float4 u = ld4(a + e), w = ld4(b + e);
+    st4(out + e, make_float4(u.x + w.x, u.y + w.y, u.z + w.z, u.w + w.w));
+  }
 }
 
 struct FEW {
@@ -1754,45 +2411,41 @@ struct FEW {
 
 // Feature encoder: y = x + pos -> conv block -> LN -> self-attention
 // (+ residual) -> LN -> dense (+ residual); y may not alias x.
-template <bool kBf16>
+template <bool kBf16, bool kGen>
 __device__ __noinline__ void feature_encoder(const float* in, const float* vm, const Ctx& x,
                                 const FEW& w, float scale, const Scratch& s,
                                 float* y) {
   const int T = x.T, D = x.D;
-  for (int e = 4 * threadIdx.x; e < T * D; e += 4 * blockDim.x) {
-    const float4 a = ld4(in + e), b = ld4(w.pos + e);
-    st4(y + e, make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w));
-  }
+  add_rows(y, in, w.pos, T * D, !kGen || D % 4 == 0);
   __syncthreads();
-  conv_block<kBf16>(y, T, x, w.conv, s.buf[0], s.buf[1]);
+  conv_block<kBf16, kGen>(y, T, x, w.conv, s.buf[0], s.buf[1]);
   float *o = s.buf[0], *q = s.buf[1], *k = s.buf[2], *v = s.buf[3],
         *att = s.buf[4], *res = s.buf[5], *ln2 = s.buf[6];
-  layer_norm(y, o, D, T, D, w.ln1);
+  ln<kGen>(y, o, D, T, D, w.ln1);
   __syncthreads();
   auto store = [&](float* out) {
     return [=](int m, int n, float val, float) { out[m * D + n] = val; };
   };
-  dense<kBf16>(o, D, T, D, D, w.q, x, store(q));
-  dense<kBf16>(o, D, T, D, D, w.k, x, store(k), nullptr, 0, true);
-  dense<kBf16>(o, D, T, D, D, w.v, x, store(v), nullptr, 0, true);
+  dense<kBf16, kGen>(o, D, T, D, D, w.q, x, store(q));
+  dense<kBf16, kGen>(o, D, T, D, D, w.k, x, store(k), nullptr, 0, true);
+  dense<kBf16, kGen>(o, D, T, D, D, w.v, x, store(v), nullptr, 0, true);
   __syncthreads();
-  attention<kBf16>(q, k, v, vm, vm, T, T, x, scale, att);
+  attention<kBf16, kGen>(q, k, v, vm, vm, T, T, x, scale, att);
   __syncthreads();
-  for (int e = 4 * threadIdx.x; e < T * D; e += 4 * blockDim.x) {
-    const float4 a = ld4(att + e), b = ld4(y + e);
-    st4(res + e, make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w));
-  }
+  add_rows(res, att, y, T * D, !kGen || D % 4 == 0);
   __syncthreads();
-  layer_norm(res, ln2, D, T, D, w.ln2);
+  ln<kGen>(res, ln2, D, T, D, w.ln2);
   __syncthreads();
-  dense<kBf16>(ln2, D, T, D, D, w.dense, x,
+  dense<kBf16, kGen>(ln2, D, T, D, D, w.dense, x,
         [=](int m, int n, float val, float r) { y[m * D + n] = val + r; }, res);
   __syncthreads();
 }
 
 // The sample's workspace (x.ws, rows x.ld floats apart): buffers 0-3 hold
 // the two streams and their next layer, 4-12 are scratch, then the CQ
-// attention's 4 Lm x Lm matrices and the small vectors.  After the
+// attention's 4 Lm x Lm matrices, the small vectors (the last, `pooled`,
+// D floats), the masks' spare place (T + W) and the split products'
+// partial sums (Lm x max(Lm, D)).  After the
 // dual-attention stack the spent pair takes q2v and v2q, then the feature
 // encoders' outputs; the final pair takes fuse and outp.  `wide` (Lm x 4D)
 // is scratch 1-4.  Pointers are derived from x at each use: x lives in
@@ -1806,10 +2459,14 @@ __device__ __forceinline__ float* vec(const Ctx& x, int i) {  // Lm floats each
   return x.ws + kBuffers * x.ld + 4L * x.Lm * x.Lm + static_cast<long>(i) * x.Lm;
 }
 
+__device__ __forceinline__ float* ws_masks(const Ctx& x) {
+  return vec(x, 3 + kLabels) + x.D;
+}
+
 // Shared positional embedding and conv block on both streams, then the
 // dual-attention stack.  Returns the buffer of the final video stream (0 or
 // 2); the query stream follows it.
-template <bool kBf16>
+template <bool kBf16, bool kGen>
 __device__ __noinline__ int encode(const Ctx& x, Cursor& c, const float* vfb,
                                    const float* qfb, const float* vm,
                                    const float* qm, int P, int attn_layer,
@@ -1817,23 +2474,17 @@ __device__ __noinline__ int encode(const Ctx& x, Cursor& c, const float* vfb,
   const int T = x.T, W = x.W, D = x.D;
   const float* pos = c.take(static_cast<long>(P) * D);
   const ConvBlockW cb = take_conv_block(c, D);
-  for (int e = 4 * threadIdx.x; e < T * D; e += 4 * blockDim.x) {
-    const float4 a = ld4(vfb + e), b = ld4(pos + e);
-    st4(buf(x, 0) + e, make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w));
-  }
-  for (int e = 4 * threadIdx.x; e < W * D; e += 4 * blockDim.x) {
-    const float4 a = ld4(qfb + e), b = ld4(pos + e);
-    st4(buf(x, 1) + e, make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w));
-  }
+  add_rows(buf(x, 0), vfb, pos, T * D, !kGen || D % 4 == 0);
+  add_rows(buf(x, 1), qfb, pos, W * D, !kGen || D % 4 == 0);
   __syncthreads();
-  conv_block<kBf16>(buf(x, 0), T, x, cb, s.buf[0], s.buf[1]);
-  conv_block<kBf16>(buf(x, 1), W, x, cb, s.buf[0], s.buf[1]);
+  conv_block<kBf16, kGen>(buf(x, 0), T, x, cb, s.buf[0], s.buf[1]);
+  conv_block<kBf16, kGen>(buf(x, 1), W, x, cb, s.buf[0], s.buf[1]);
   int cur = 0;
   for (int li = 0; li < attn_layer; ++li) {
     const DualW dw = take_dual(c, D);
-    dual_attn<kBf16>(buf(x, cur), buf(x, cur + 1), vm, qm, T, W, x, dw, scale, s,
+    dual_attn<kBf16, kGen>(buf(x, cur), buf(x, cur + 1), vm, qm, T, W, x, dw, scale, s,
               buf(x, 2 - cur));
-    dual_attn<kBf16>(buf(x, cur + 1), buf(x, cur), qm, vm, W, T, x, dw, scale, s,
+    dual_attn<kBf16, kGen>(buf(x, cur + 1), buf(x, cur), qm, vm, W, T, x, dw, scale, s,
               buf(x, 3 - cur));
     cur = 2 - cur;
   }
@@ -1843,7 +2494,7 @@ __device__ __noinline__ int encode(const Ctx& x, Cursor& c, const float* vfb,
 // CQ fusion both ways, weighted pooling, cq_cat, the matching softmax (to
 // ms_out) and the soft label embedding: fuse and then outp in the final
 // streams' buffers.
-template <bool kBf16>
+template <bool kBf16, bool kGen>
 __device__ __noinline__ void fuse(const Ctx& x, Cursor& c, const float* vm,
                                   const float* qm, int cur, const Scratch& s,
                                   float* ms_out, int use_gumbel, float tau) {
@@ -1852,9 +2503,9 @@ __device__ __noinline__ void fuse(const Ctx& x, Cursor& c, const float* vm,
   float* cqreg = buf(x, kBuffers);
   const CQW q2v_w = take_cq(c, D);
   const CQW v2q_w = take_cq(c, D);
-  cq_attention<kBf16>(buf(x, xv), buf(x, xq), vm, qm, T, W, x, q2v_w, s.buf[0],
+  cq_attention<kBf16, kGen>(buf(x, xv), buf(x, xq), vm, qm, T, W, x, q2v_w, s.buf[0],
                vec(x, 0), vec(x, 1), cqreg, s.buf[1], buf(x, q2v));
-  cq_attention<kBf16>(buf(x, xq), buf(x, xv), qm, vm, W, T, x, v2q_w, s.buf[0],
+  cq_attention<kBf16, kGen>(buf(x, xq), buf(x, xv), qm, vm, W, T, x, v2q_w, s.buf[0],
                vec(x, 0), vec(x, 1), cqreg, s.buf[1], buf(x, v2q));
   const float* wp = c.take(D);
   const Dense cq_cat = take_dense(c, 2 * D, D);
@@ -1899,7 +2550,7 @@ __device__ __noinline__ void fuse(const Ctx& x, Cursor& c, const float* vm,
   }
   __syncthreads();
   float* fuse_out = buf(x, xv);  // the streams are spent
-  dense<kBf16>(s.buf[1], D2, T, D2, D, cq_cat, x,
+  dense<kBf16, kGen>(s.buf[1], D2, T, D2, D, cq_cat, x,
         [=](int m, int n, float v, float) { fuse_out[m * D + n] = v; });
   __syncthreads();
 
@@ -1959,7 +2610,7 @@ __device__ __noinline__ void fuse(const Ctx& x, Cursor& c, const float* vm,
 // The conditioned predictor: the feature encoder twice (into the spent
 // pair's buffers), then per side [LN(feats), outp] @ hidden + b -> relu
 // -> . dense + b.
-template <bool kBf16>
+template <bool kBf16, bool kGen>
 __device__ __noinline__ void predict(const Ctx& x, Cursor& c, const float* vm,
                                      int cur, int P, float scale,
                                      const Scratch& s, float* start_logits,
@@ -1975,8 +2626,8 @@ __device__ __noinline__ void predict(const Ctx& x, Cursor& c, const float* vm,
   fe.v = take_dense(c, D, D);
   fe.ln2 = take_ln(c, D);
   fe.dense = take_dense(c, D, D);
-  feature_encoder<kBf16>(buf(x, outp), vm, x, fe, scale, s, buf(x, start_f));
-  feature_encoder<kBf16>(buf(x, start_f), vm, x, fe, scale, s, buf(x, end_f));
+  feature_encoder<kBf16, kGen>(buf(x, outp), vm, x, fe, scale, s, buf(x, start_f));
+  feature_encoder<kBf16, kGen>(buf(x, start_f), vm, x, fe, scale, s, buf(x, end_f));
   const LN lns[2] = {take_ln(c, D), take_ln(c, D)};
   Dense hidden[2], last[2];
   hidden[0] = take_dense(c, D2, D);
@@ -1985,13 +2636,13 @@ __device__ __noinline__ void predict(const Ctx& x, Cursor& c, const float* vm,
   last[1] = take_dense(c, D, 1);
   for (int which = 0; which < 2; ++which) {
     float* wide = s.buf[1];
-    layer_norm(buf(x, which ? end_f : start_f), wide, D2, T, D, lns[which]);
+    ln<kGen>(buf(x, which ? end_f : start_f), wide, D2, T, D, lns[which]);
     const float* op = buf(x, outp);
     for (int e = threadIdx.x; e < T * D; e += blockDim.x)
       wide[(e / D) * D2 + D + e % D] = op[e];
     __syncthreads();
     float* hid = s.buf[0];
-    dense<kBf16>(wide, D2, T, D2, D, hidden[which], x,
+    dense<kBf16, kGen>(wide, D2, T, D2, D, hidden[which], x,
                  [=](int m, int n, float v, float) { hid[m * D + n] = fmaxf(v, 0.0f); });
     __syncthreads();
     const float* lb = last[which].b;
@@ -2021,7 +2672,7 @@ struct Params {
   int use_gumbel;
 };
 
-template <bool kBf16>
+template <bool kBf16, bool kGen>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_forward_kernel(const Params p) {
   const int b = blockIdx.x;
@@ -2037,7 +2688,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   x.D = D;
   x.H = p.H;
   x.Lm = Lm;
-  float* vm;  // (T) video mask
+  x.ws = p.workspace + b * p.ws_floats;
+  x.ld = ld;
+  x.part = ws_masks(x) + T + W;
+  float* vm = ws_masks(x);  // (T) video mask, in shared memory where it fits
   if constexpr (kBf16) {
     const Bf16Layout lay(T, W, D, p.H);
     char* base = reinterpret_cast<char*>(smem);
@@ -2048,10 +2702,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     x.sched = p.sched;
     x.nsched = p.nsched;
     x.qkv_rows = lay.qkv_rows;
+    x.heads = lay.heads;
+    x.cq_tile = lay.cq_tile;
     x.match_bf = p.match_bf;
     x.label_bf = p.label_bf;
     x.slab = 0;
-    vm = reinterpret_cast<float*>(base + lay.masks);
+    if (lay.masks_smem) vm = reinterpret_cast<float*>(base + lay.masks);
     if (threadIdx.x == 0) {  // the ring's barriers and first slabs
       for (int i = 0; i < kRing; ++i) mbar_init(x.full + i, 1);
       fence_mbar_init();
@@ -2065,10 +2721,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     x.stage = smem;
     x.stage_floats = lay.a_floats + lay.b_floats;
     x.a_floats = lay.a_floats;
-    x.S = smem + lay.region;
     x.lds = lay.score_ld;
     x.heads = lay.heads;
-    vm = x.S + static_cast<long>(lay.heads) * lay.head_floats;
+    x.attn = lay.attn;
+    // the scores: after the region (resident), inside it (grouped), or in
+    // the CQ attention's matrices (streamed)
+    x.S = lay.attn == kStreamed ? buf(x, kBuffers) : smem + lay.region;
+    if (lay.masks_smem)
+      vm = smem + lay.region + (lay.attn == kResident ? lay.heads * lay.head_floats : 0);
   }
   float* qm = vm + T;                  // (W) query mask
   for (int t = threadIdx.x; t < T; t += blockDim.x)
@@ -2076,30 +2736,28 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int t = threadIdx.x; t < W; t += blockDim.x)
     qm[t] = static_cast<float>(p.q_mask[static_cast<long>(b) * W + t]);
 
-  x.ws = p.workspace + b * p.ws_floats;
-  x.ld = ld;
   Scratch s;
   for (int i = 0; i < 9; ++i) s.buf[i] = buf(x, 4 + i);
   Cursor c{p.weights};
-  const int cur = encode<kBf16>(x, c, p.vf + static_cast<long>(b) * T * D,
+  const int cur = encode<kBf16, kGen>(x, c, p.vf + static_cast<long>(b) * T * D,
                          p.qf + static_cast<long>(b) * W * D, vm, qm, p.P,
                          p.attn_layer, scale, s);
-  fuse<kBf16>(x, c, vm, qm, cur, s,
+  fuse<kBf16, kGen>(x, c, vm, qm, cur, s,
               p.match_scores + static_cast<long>(b) * T * kLabels, p.use_gumbel,
               p.tau);
-  predict<kBf16>(x, c, vm, cur, p.P, scale, s,
+  predict<kBf16, kGen>(x, c, vm, cur, p.P, scale, s,
                  p.start_logits + static_cast<long>(b) * T,
                  p.end_logits + static_cast<long>(b) * T);
 }
 
 // Opts the kernel's instantiation in to `smem` bytes of dynamic shared
 // memory and launches it; returns the first CUDA error.
-template <bool kBf16>
+template <bool kBf16, bool kGen>
 int launch(const Params& p, int B, int smem, cudaStream_t stream) {
   const cudaError_t rc = cudaFuncSetAttribute(
-      fused_forward_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fused_forward_kernel<kBf16, kGen>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  fused_forward_kernel<kBf16><<<B, kThreads, smem, stream>>>(p);
+  fused_forward_kernel<kBf16, kGen><<<B, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2118,9 +2776,10 @@ extern "C" long long fused_forward_weight_floats(int D, int attn_layer, int P) {
 }
 
 extern "C" long long fused_forward_workspace_floats(int T, int W, int D, int H) {
-  (void)H;  // attention scores live in shared memory
+  (void)H;
   const long long lm = T > W ? T : W;
-  const long long n = kBuffers * lm * D + 4 * lm * lm + (3 + kLabels) * lm + D;
+  const long long n = kBuffers * lm * D + 4 * lm * lm + (3 + kLabels) * lm + D +
+                      (T + W) + lm * (lm > D ? lm : D);
   return (n + 31) / 32 * 32;  // 128-byte aligned samples
 }
 
@@ -2136,15 +2795,48 @@ extern "C" int fused_forward_bf16_ring() { return kRing; }
 
 extern "C" int fused_forward_bf16_slab_k() { return kKSlab; }
 
-extern "C" int fused_forward_heads_per_group(int T, int W, int D, int H) {
-  return SmemLayout(T, W, D, H).heads;
+// The routes of a launch at this shape (the layouts above), out[0..5]: the
+// f64 path's attention route (0 resident, 1 grouped, 2 streamed), its heads
+// a group, its masks in shared memory (1) or the workspace (0); the bf16
+// path's heads a group (0: every attention streams), its CQ tile (0:
+// resident), its masks in shared memory.
+extern "C" void fused_forward_routes(int T, int W, int D, int H, int* out) {
+  const SmemLayout f(T, W, D, H);
+  const Bf16Layout b(T, W, D, H);
+  out[0] = f.attn;
+  out[1] = f.heads;
+  out[2] = f.masks_smem;
+  out[3] = b.heads;
+  out[4] = b.cq_tile;
+  out[5] = b.masks_smem;
 }
 
 extern "C" int fused_forward_threads() { return kThreads; }
 
-extern "C" int fused_forward_max_len() { return kMaxLen; }
+namespace {
 
-extern "C" int fused_forward_max_dim() { return kMaxDim; }
+// Whether the resident kernel takes this shape: every stage on its
+// resident route (D <= 128 and a multiple of 4, at most kKeyChunk keys, q,
+// k and v of every head and the CQ products' images in shared memory, the
+// masks there too).  Every other shape runs the general kernel.
+bool resident_takes(int T, int W, int D, int H, bool bf16) {
+  if (D > kRingRows || D % 4 != 0 || (T > W ? T : W) > kKeyChunk) return false;
+  if (bf16) {
+    const Bf16Layout b(T, W, D, H);
+    return b.heads == H && b.cq_tile == 0 && b.masks_smem;
+  }
+  const SmemLayout f(T, W, D, H);
+  return f.attn == kResident && f.masks_smem;
+}
+
+}  // namespace
+
+// 1 if this library's kernel takes the shape on the path (the general
+// build takes every shape the entry points take).
+extern "C" int fused_forward_takes(int T, int W, int D, int H, int bf16) {
+  if (T < 1 || W < 1 || H < 1 || D % H != 0) return 0;
+  return K2_GENERAL || resident_takes(T, W, D, H, bf16 != 0);
+}
 
 namespace {
 
@@ -2155,8 +2847,7 @@ int run(Params& p, const void* weights, const void* vf, const void* qf,
         int W, int D, int H, int attn_layer, int P, float tau, int use_gumbel,
         bool bf16, void* stream) {
   if (B <= 0) return 0;
-  if (T < 1 || W < 1 || T > kMaxLen || W > kMaxLen || D > kMaxDim ||
-      D % 4 != 0 || H < 1 || D % H != 0)
+  if (!fused_forward_takes(T, W, D, H, bf16))
     return static_cast<int>(cudaErrorInvalidValue);
   p.weights = static_cast<const float*>(weights);
   p.vf = static_cast<const float*>(vf);
@@ -2178,9 +2869,9 @@ int run(Params& p, const void* weights, const void* vf, const void* qf,
   p.use_gumbel = use_gumbel;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch<true>(p, B, static_cast<int>(fused_forward_bf16_smem_bytes(T, W, D, H)),
+    return launch<true, K2_GENERAL>(p, B, static_cast<int>(fused_forward_bf16_smem_bytes(T, W, D, H)),
                         s);
-  return launch<false>(p, B, static_cast<int>(fused_forward_smem_bytes(T, W, D, H)), s);
+  return launch<false, K2_GENERAL>(p, B, static_cast<int>(fused_forward_smem_bytes(T, W, D, H)), s);
 }
 
 }  // namespace

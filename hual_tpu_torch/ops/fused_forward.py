@@ -113,9 +113,11 @@ def pack_order(attn_layer: int) -> list[str]:
 # kernel's products) and the matching head's kernel and ``label_emb`` (CUDA
 # cores).  The (D, 1) denses are elementwise sums there, not rounded.
 SLAB_K = 64          # k depth of one slab of a product's weight (kKSlab)
+CHUNK_SLABS = 4      # slabs of one chunk of a product (kChunkSlabs)
+RING_ROWS = 128      # output columns of a ring slot, a column pass (kRingRows)
 _ROW_MAJOR_BF16 = ("matching_head/dense/kernel", "label_emb")
-# the CQ attentions' (4D, D) denses run as two products of K = 2D on the
-# bf16 path (its ring holds 256 values of k): each half imaged apart
+# the CQ attentions' (4D, D) denses run on the bf16 path as two segments of
+# K = 2D, as the bilinears' [d1; d2]: each half imaged apart
 BF16_HALVES = ("q2v_attn/dense/kernel", "v2q_attn/dense/kernel")
 _NOT_ROUNDED = ("predictor/start_dense/kernel", "predictor/end_dense/kernel")
 
@@ -140,31 +142,41 @@ def _images(key: str, w: torch.Tensor) -> list[torch.Tensor]:
     return [w]
 
 
-def bf16_schedule(attn_layer: int) -> list[str]:
-    """The ring leaves in the order of the kernel's products: the conv block
-    on each stream, each dual-attention layer in both directions (its ten
-    denses, the bilinears' two halves, dense_1, dense_2), the two CQ
-    attentions' denses, cq_cat, the feature encoder twice (its pointwise
-    filters, q, k, v, dense), the two hidden layers."""
-    conv = [f"conv_block/depthwise_conv_layers_{i}/pointwise_filter"
-            for i in range(4)]
+def bf16_products(attn_layer: int) -> list[list[tuple[str, int]]]:
+    """The kernel's products on the bf16 path in order, each a list of its
+    weight parts (leaf key, half): the conv block on each stream, each
+    dual-attention layer in both directions (its ten denses, the two
+    bilinears of two leaves each, dense_1, dense_2), the two CQ attentions'
+    denses (two halves each), cq_cat, the feature encoder twice (its
+    pointwise filters, q, k, v, dense), the two hidden layers."""
+    def one(*keys):
+        return [[(k, 0)] for k in keys]
+
+    conv = one(*(f"conv_block/depthwise_conv_layers_{i}/pointwise_filter"
+                 for i in range(4)))
     order = conv + conv
     for li in range(attn_layer):
         m = f"d_attn_{li}/dual_multihead_attention"
-        one = ([f"{m}/{name}/kernel" for name in _DUAL_DENSES]
-               + [f"{m}/{bl}/{d}/kernel" for bl in ("bilinear_1", "bilinear_2")
-                  for d in ("dense_1", "dense_2")]
-               + [f"d_attn_{li}/dense_1/kernel", f"d_attn_{li}/dense_2/kernel"])
-        order += one + one
-    order += ["q2v_attn/dense/kernel", "v2q_attn/dense/kernel",
-              "cq_cat/dense/kernel"]
+        layer = (one(*(f"{m}/{name}/kernel" for name in _DUAL_DENSES))
+                 + [[(f"{m}/{bl}/{d}/kernel", 0) for d in ("dense_1", "dense_2")]
+                    for bl in ("bilinear_1", "bilinear_2")]
+                 + one(f"d_attn_{li}/dense_1/kernel", f"d_attn_{li}/dense_2/kernel"))
+        order += layer + layer
+    order += [[(k, 0), (k, 1)] for k in BF16_HALVES] + one("cq_cat/dense/kernel")
     fe = "predictor/feature_encoder"
-    one = ([f"{fe}/conv_block/depthwise_conv_layers_{i}/pointwise_filter"
-            for i in range(4)]
-           + [f"{fe}/top_self_attention/{n}/kernel" for n in ("query", "key", "value")]
-           + [f"{fe}/dense/kernel"])
-    return order + one + one + ["predictor/start_hidden/kernel",
-                                "predictor/end_hidden/kernel"]
+    enc = one(*[f"{fe}/conv_block/depthwise_conv_layers_{i}/pointwise_filter"
+                for i in range(4)],
+              *[f"{fe}/top_self_attention/{n}/kernel" for n in ("query", "key", "value")],
+              f"{fe}/dense/kernel")
+    return order + enc + enc + one("predictor/start_hidden/kernel",
+                                   "predictor/end_hidden/kernel")
+
+
+def bf16_schedule(attn_layer: int) -> list[str]:
+    """The ring leaves in the order of the kernel's products
+    (:func:`bf16_products`), a leaf of two halves once."""
+    return [key for product in bf16_products(attn_layer)
+            for key, half in product if half == 0]
 
 
 # The two position tables, (max_vlen, D): they keep both axes, so that
@@ -251,16 +263,34 @@ def _bf16_parts(leaves: dict[str, torch.Tensor], attn_layer: int
     return parts, layout
 
 
-def _bf16_schedule_tensor(layout: dict, attn_layer: int, device) -> torch.Tensor:
+def bf16_slabs(layout: dict, attn_layer: int) -> list[tuple[int, int]]:
+    """The ring's slabs in the order the kernel consumes them, (value offset
+    in the companion, values) each.  A product's parts are cut into slabs of
+    :data:`SLAB_K` (each part padded to 16 values of k); the slabs form
+    chunks of :data:`CHUNK_SLABS`, and each chunk is read in column passes
+    of :data:`RING_ROWS` outputs, a pass's rows of every slab of the chunk
+    (contiguous in the slab's image: core matrices of 8 rows follow each
+    other along N)."""
     rows = []
-    for key in bf16_schedule(attn_layer):
-        offset, (K, N) = layout[key]
-        halves = 2 if key in BF16_HALVES else 1
-        Np, Kp = _up(N, 8), _up(K // halves, 16)
-        for h in range(halves):
-            for k0 in range(0, Kp, SLAB_K):
-                kw = min(SLAB_K, Kp - k0)
-                rows.append((2 * (offset + Np * (h * Kp + k0)), 2 * Np * kw))
+    for product in bf16_products(attn_layer):
+        slabs = []   # (offset of the slab, padded N, its k width)
+        for key, half in product:
+            offset, (K, N) = layout[key]
+            halves = 2 if key in BF16_HALVES else 1
+            Np, Kp = _up(N, 8), _up(K // halves, 16)
+            base = offset + half * Np * Kp
+            slabs += [(base + Np * k0, Np, min(SLAB_K, Kp - k0))
+                      for k0 in range(0, Kp, SLAB_K)]
+        for c0 in range(0, len(slabs), CHUNK_SLABS):
+            chunk = slabs[c0:c0 + CHUNK_SLABS]
+            for n0 in range(0, chunk[0][1], RING_ROWS):
+                rows += [(start + n0 * kw, min(RING_ROWS, Np - n0) * kw)
+                         for start, Np, kw in chunk]
+    return rows
+
+
+def _bf16_schedule_tensor(layout: dict, attn_layer: int, device) -> torch.Tensor:
+    rows = [(2 * offset, 2 * values) for offset, values in bf16_slabs(layout, attn_layer)]
     return torch.tensor(rows, dtype=torch.int32, device=device)
 
 

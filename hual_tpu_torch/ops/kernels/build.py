@@ -2,11 +2,12 @@
 
 Each ``hual_tpu_torch/csrc/<name>.cu`` compiles on its own into
 ``build/hual_tpu_torch/lib<name>-<digest>.so`` at the repository root, where
-the digest covers the source and the flags: a changed source builds anew, an
-unchanged one is loaded as it is.  The sources have a plain C interface, so
-nvcc takes seconds and no PyTorch header is compiled.  Nothing is built when
-this module is imported; :func:`build` runs at the first launch, or ahead of
-it (``chip_smoke.py``), one nvcc process per source, all started together.
+the digest covers the source, the csrc files it includes and the flags: a
+changed source builds anew, an unchanged one is loaded as it is.  The
+sources have a plain C interface, so nvcc takes seconds and no PyTorch
+header is compiled.  Nothing is built when this module is imported;
+:func:`build` runs at the first launch, or ahead of it (``chip_smoke.py``),
+one nvcc process per source, all started together.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import time
 from pathlib import Path
@@ -42,8 +44,16 @@ def names() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def library_path(name: str) -> Path:
+def _source_bytes(name: str) -> bytes:
+    """The source of ``csrc/<name>.cu`` and of the csrc files it includes."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    included = re.findall(rb'^#include "([^"]+)"', src, flags=re.M)
+    return src + b"".join((CSRC / f.decode()).read_bytes() for f in included
+                          if (CSRC / f.decode()).exists())
+
+
+def library_path(name: str) -> Path:
+    src = _source_bytes(name)
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

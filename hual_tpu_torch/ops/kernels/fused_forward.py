@@ -9,8 +9,14 @@ kernel on that path or raises, and never falls back to the other path or
 the plain version.  The bf16 path reads the packed weights' bf16 companion
 and the schedule of its slabs (``PackedWeights.bf16``, ``.schedule``).  ``fused_forward.launches`` counts the launches of the
 default path, ``fused_forward.launches_bf16`` those of the bf16 path.
-The kernel takes T and W up to :data:`MAX_LEN` and D up to :data:`MAX_DIM`;
-:func:`check_kernel_shape` is that limit, checked before every launch.
+The kernel takes any T >= 1 and W >= 1 and any D that ``num_heads`` divides,
+as the Pallas kernel does: each stage takes a resident route where its
+operands fit in a block's shared memory and a tiled one where they do not
+(:func:`routes`); :func:`check_kernel_shape` is what it refuses.  Two builds
+of the source serve it: the resident kernel (``csrc/fused_forward.cu``),
+whose code is what the shapes of the old limit ran before the tiled routes,
+takes every shape whose stages are all resident; the general kernel
+(``csrc/fused_forward_general.cu``, every route) takes the rest.
 """
 
 from __future__ import annotations
@@ -23,16 +29,15 @@ import torch
 from hual_tpu_torch.ops.fused_forward import PackedWeights, forward_math
 from hual_tpu_torch.ops.kernels import build
 
-# The kernel's shape limit (kMaxLen, kMaxDim in csrc/fused_forward.cu): the
-# q, k and v rows of an attention and one head's scores must fit in a
-# block's 227 KB of shared memory.
-MAX_LEN = 100
-MAX_DIM = 128
+# The keys of ``fused_forward_routes``'s six values (csrc/fused_forward.cu)
+ROUTE_KEYS = ("f64_attention", "f64_heads_per_group", "f64_masks_in_smem",
+              "bf16_heads_per_group", "bf16_cq_tile", "bf16_masks_in_smem")
+F64_ATTENTION = ("resident", "grouped", "streamed")
 
 
 @functools.cache
-def _library():
-    lib = build.load("fused_forward")
+def _library(name: str = "fused_forward"):
+    lib = build.load(name)
     lib.fused_forward_f32.argtypes = (
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -49,16 +54,22 @@ def _library():
     lib.fused_forward_workspace_floats.restype = ctypes.c_longlong
     lib.fused_forward_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.fused_forward_smem_bytes.restype = ctypes.c_longlong
-    lib.fused_forward_heads_per_group.argtypes = [ctypes.c_int] * 4
-    lib.fused_forward_heads_per_group.restype = ctypes.c_int
+    lib.fused_forward_routes.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.fused_forward_routes.restype = None
     lib.fused_forward_threads.restype = ctypes.c_int
-    lib.fused_forward_max_len.restype = ctypes.c_int
-    lib.fused_forward_max_dim.restype = ctypes.c_int
+    lib.fused_forward_takes.argtypes = [ctypes.c_int] * 5
+    lib.fused_forward_takes.restype = ctypes.c_int
     return lib
 
 
+def resident(T: int, W: int, D: int, num_heads: int, mxu_bf16: bool = False) -> bool:
+    """Whether the resident kernel takes this shape on this path (else the
+    general kernel runs it)."""
+    return bool(_library().fused_forward_takes(T, W, D, num_heads, int(mxu_bf16)))
+
+
 def workspace_floats(T: int, W: int, D: int, num_heads: int) -> int:
-    """f32 values of per-sample workspace the kernel needs (0.82 MB a sample
+    """f32 values of per-sample workspace the kernel needs (0.53 MB a sample
     at T=64, W=13, D=128)."""
     return int(_library().fused_forward_workspace_floats(T, W, D, num_heads))
 
@@ -70,24 +81,42 @@ def smem_bytes(T: int, W: int, D: int, num_heads: int, mxu_bf16: bool = False) -
     return int(fn(T, W, D, num_heads))
 
 
-def heads_per_group(T: int, W: int, D: int, num_heads: int) -> int:
-    """Heads whose scores the default path holds in shared memory at once."""
-    return int(_library().fused_forward_heads_per_group(T, W, D, num_heads))
+def routes(T: int, W: int, D: int, num_heads: int) -> dict:
+    """The routes a launch takes at this shape: the default path's attention
+    (``resident``: q, k and v of every head in shared memory; ``grouped``: of
+    ``f64_heads_per_group`` heads at a time; ``streamed``: one head's scores
+    in the workspace), the bf16 path's heads whose images fit at once (0:
+    every attention streams its keys in chunks, as any over more than 112
+    keys does) and its CQ products' tile (0: resident), whether each path
+    keeps the masks in shared memory, and which kernel runs each path
+    (``resident`` or ``general``, :func:`resident`)."""
+    out = (ctypes.c_int * len(ROUTE_KEYS))()
+    _library().fused_forward_routes(T, W, D, num_heads, out)
+    got = dict(zip(ROUTE_KEYS, out))
+    got["f64_attention"] = F64_ATTENTION[got["f64_attention"]]
+    for path, bf16 in (("f64", False), ("bf16", True)):
+        got[f"{path}_kernel"] = ("resident" if resident(T, W, D, num_heads, bf16)
+                                 else "general")
+    for key in ("f64_masks_in_smem", "bf16_masks_in_smem"):
+        got[key] = bool(got[key])
+    return got
 
 
 def threads_per_block() -> int:
     return int(_library().fused_forward_threads())
 
 
-def check_kernel_shape(T: int, W: int, D: int) -> None:
-    """Raises ``ValueError`` unless the kernel takes T clips, W words and
-    width D: T and W in [1, MAX_LEN], D a multiple of 4 up to MAX_DIM."""
-    if not (1 <= T <= MAX_LEN and 1 <= W <= MAX_LEN):
-        raise ValueError(f"fused_forward: the kernel takes T and W in [1, "
-                         f"{MAX_LEN}] (its shared-memory tiles), got T={T}, W={W}")
-    if not (D <= MAX_DIM and D % 4 == 0):
-        raise ValueError(f"fused_forward: the kernel takes D a multiple of 4 up "
-                         f"to {MAX_DIM} (its shared-memory tiles), got D={D}")
+def check_kernel_shape(T: int, W: int, D: int, num_heads: int) -> None:
+    """Raises ``ValueError`` unless the kernel takes T clips, W words, width
+    D and ``num_heads`` heads: T, W and the heads at least 1, D divisible by
+    the heads.  There is no upper bound: past what fits in shared memory
+    the stages tile (:func:`routes`)."""
+    if T < 1 or W < 1:
+        raise ValueError(f"fused_forward: the kernel takes T >= 1 and W >= 1, "
+                         f"got T={T}, W={W}")
+    if num_heads < 1 or D % num_heads:
+        raise ValueError(f"fused_forward: D={D} not divisible by "
+                         f"{num_heads} heads")
 
 
 def _check(packed: PackedWeights, vf, qf, v_mask, q_mask, attn_layer: int,
@@ -116,12 +145,10 @@ def _check(packed: PackedWeights, vf, qf, v_mask, q_mask, attn_layer: int,
         raise ValueError(f"fused_forward: masks {tuple(v_mask.shape)} and "
                          f"{tuple(q_mask.shape)} do not match (B,T)={B, T}, "
                          f"(B,W)={B, W}")
-    if T < 1 or W < 1 or max(T, W) > packed.max_pos:
+    check_kernel_shape(T, W, D, num_heads)
+    if max(T, W) > packed.max_pos:
         raise ValueError(f"fused_forward: T={T} and W={W} must lie in "
                          f"[1, {packed.max_pos}] (the positional table)")
-    if num_heads < 1 or D % num_heads:
-        raise ValueError(f"fused_forward: D={D} not divisible by "
-                         f"{num_heads} heads")
     if attn_layer != packed.attn_layer:
         raise ValueError(f"fused_forward: attn_layer={attn_layer}, the weights "
                          f"were packed for {packed.attn_layer}")
@@ -156,8 +183,8 @@ def fused_forward(packed: PackedWeights, vf: torch.Tensor, qf: torch.Tensor,
         raise ValueError(f"fused_forward: unsupported device {vf.device}")
     B, T, D = vf.shape
     W = qf.shape[1]
-    check_kernel_shape(T, W, D)
-    lib = _library()
+    lib = (_library() if resident(T, W, D, num_heads, mxu_bf16)
+           else _library("fused_forward_general"))
     expected = lib.fused_forward_weight_floats(D, attn_layer, packed.max_pos)
     if packed.buffer.numel() != expected:
         raise ValueError(f"fused_forward: {packed.buffer.numel()} packed "

@@ -73,7 +73,6 @@ from hual_tpu_torch.data.features import FeatureStore, quantize_features
 from hual_tpu_torch.data.loader import (EvalLoader, PackedDataset,
                                         TrainLoader, prefetch)
 from hual_tpu_torch.models import get_model_class
-from hual_tpu_torch.ops.kernels.fused_forward import check_kernel_shape
 from hual_tpu_torch.ops.optim import BertAdamW, count_params, make_optimizer
 from hual_tpu_torch.parallel import Mesh, RowShard
 from hual_tpu_torch.runtime import graphs, steps
@@ -87,18 +86,6 @@ _FEATURE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                    "int8": torch.int8}
 # (table, int8 scales or None); each a RowShard under a mesh
 _DeviceTable = tuple[Any, Optional[Any]]
-
-
-def check_fused_shape(config: Config, device: torch.device) -> None:
-    """Raises ``ValueError`` when K2 cannot take this model's sweeps on
-    ``device``: a sweep pads T to ``max_vlen`` and its W never exceeds it
-    (``data/datasets.py`` cuts words there), so the kernel's limit
-    (``check_kernel_shape``) is checked when the Trainer is built, not at
-    the first test sweep an epoch later.  The plain version on the CPU has
-    no limit, as the Pallas kernel has none."""
-    if device.type == "cuda":
-        m = config.model
-        check_kernel_shape(m.max_vlen, m.max_vlen, m.dim)
 
 
 @dataclass
@@ -154,8 +141,6 @@ class Trainer:
                 "dataset; host-streaming mode is active, using the flax "
                 "sweep backend instead")
         self._fused = tcfg.sweep_backend == "fused" and not self.host_streaming
-        if self._fused:
-            check_fused_shape(config, self.device)
 
         max_wlen, max_clen = dataset["max_wlen"], dataset["max_clen"]
         self.train_set = PackedDataset(dataset["train_set"], feature_store,

@@ -11,9 +11,11 @@ f32 pack in its products:
   shared-memory image bit for bit ``f32_pack.to(torch.bfloat16)``, the
   padding zero;
 * its schedule lists each weight's slabs in the order of the kernel's
-  products, 16-byte aligned, at most four to a product (the CQ
-  attentions' (4D, D) denses run, and are imaged, as their two halves
-  along K);
+  products, 16-byte aligned: a product's slabs in chunks of at most four,
+  each chunk in column passes of at most 128 outputs (a ring slot), as the
+  kernel's dense_bf16 reads them (the CQ attentions' (4D, D) denses are
+  imaged as their two halves along K, and a bilinear's two leaves are one
+  product);
 * ``pack_weights(model, out=)`` refills both buffers in place: a captured
   graph reads them at the addresses it captured.
 """
@@ -105,24 +107,31 @@ def test_companion_holds_the_rounded_leaves(D, L):
     assert covered <= packed.bf16.numel() < covered + 16
 
 
-@pytest.mark.parametrize("D,L", [(32, 2), (36, 1)])
+@pytest.mark.parametrize("D,L", [(32, 2), (36, 1), (136, 1)])
 def test_schedule_lists_the_slabs_of_the_products(D, L):
     packed = ff.pack_weights(_model(D, L))
     sched = packed.schedule
     assert sched.dtype == torch.int32 and sched.shape[1] == 2
     rows, counts = [], {}
-    for key in ff.bf16_schedule(L):
-        counts[key] = counts.get(key, 0) + 1
-        offset, (K, N) = packed.bf16_layout[key]
-        halves = 2 if key in ff.BF16_HALVES else 1
-        Np, Kp = -(-N // 8) * 8, -(-(K // halves) // 16) * 16
-        for h in range(halves):
+    for product in ff.bf16_products(L):
+        slabs = []   # (byte offset of the slab, padded N, its k width)
+        for key, h in product:
+            if h == 0:
+                counts[key] = counts.get(key, 0) + 1
+            offset, (K, N) = packed.bf16_layout[key]
+            halves = 2 if key in ff.BF16_HALVES else 1
+            Np, Kp = -(-N // 8) * 8, -(-(K // halves) // 16) * 16
             for k0 in range(0, Kp, ff.SLAB_K):
-                rows.append([2 * (offset + Np * (h * Kp + k0)),
-                             2 * Np * min(ff.SLAB_K, Kp - k0)])
+                slabs.append((2 * (offset + Np * (h * Kp + k0)), Np,
+                              min(ff.SLAB_K, Kp - k0)))
+        for c in range(0, len(slabs), 4):      # chunks of four slabs
+            for n0 in range(0, slabs[0][1], 128):   # column passes
+                for start, Np, kw in slabs[c:c + 4]:
+                    rows.append([start + 2 * n0 * kw, 2 * min(128, Np - n0) * kw])
     assert sched.tolist() == rows
+    assert ff.bf16_schedule(L) == [k for p in ff.bf16_products(L) for k, h in p if h == 0]
     assert all(b % 16 == 0 and o % 16 == 0 for o, b in rows)
-    assert max(b for _, b in rows) <= 2 * k2.MAX_DIM * ff.SLAB_K
+    assert max(b for _, b in rows) <= 2 * ff.RING_ROWS * ff.SLAB_K
     # the conv blocks, the dual layers and the feature encoder run twice
     twice = {k for k in counts if "conv_block" in k or k.startswith("d_attn_")
              or "feature_encoder" in k}

@@ -41,6 +41,11 @@ CASES = {
     "d128_h8_l2": (dict(dim=128, num_heads=8, attn_layer=2, max_vlen=16), False, B, W),
     "d32_h4_l1_vlen1": (dict(dim=32, num_heads=4, attn_layer=1, max_vlen=1),
                         False, 3, 1),
+    # past the card kernel's old shape limit: T over 100 with D not a
+    # multiple of 4, and D over 128
+    "d30_h5_l1_vlen120": (dict(dim=30, num_heads=5, attn_layer=1, max_vlen=120),
+                          False, B, W),
+    "d136_h8_l1": (dict(dim=136, num_heads=8, attn_layer=1, max_vlen=16), False, B, W),
 }
 TEXT = dict(word_dim=20, char_dim=8, num_chars=30)
 
@@ -296,21 +301,25 @@ def test_wrapper_input_checks():
     (100, 30, 128, True),    # ActivityNet width
     (17, 5, 128, True),      # ragged in every tile dimension
     (1, 1, 16, True),
-    (100, 100, 128, True),   # the limit itself
-    (101, 13, 128, False),
-    (64, 101, 128, False),
+    (100, 100, 128, True),   # the old limit itself
+    (101, 13, 128, True),    # past the old limit: T
+    (64, 101, 128, True),    # W
     (0, 13, 128, False),
     (64, 0, 128, False),
-    (64, 13, 256, False),
-    (64, 13, 30, False),
+    (64, 13, 256, True),     # D past 128
+    (64, 13, 30, True),      # D not a multiple of 4 (6 heads of 5)
+    (64, 13, 36, False),     # D not divisible by the 8 heads
 ])
 def test_kernel_shape_limit(T, Wq, D, ok):
-    """The kernel's one shape limit: T and W in [1, MAX_LEN], D a multiple
-    of 4 up to MAX_DIM; every shape of the main paths (T in {64, 100},
-    W <= 30, D = 128) is accepted."""
-    assert (k2.MAX_LEN, k2.MAX_DIM) == (100, 128)
+    """What the kernel refuses, as the Pallas kernel does: T or W below 1,
+    D not divisible by the heads (8, or 6 at D=30).  Every other shape is
+    taken, those past the limit it had until its stages tiled (T and W over
+    100, D over 128 or not a multiple of 4) too; the wrapper has no limit
+    constants left."""
+    assert not hasattr(k2, "MAX_LEN") and not hasattr(k2, "MAX_DIM")
+    H = 6 if D == 30 else 8
     if ok:
-        k2.check_kernel_shape(T, Wq, D)
+        k2.check_kernel_shape(T, Wq, D, H)
     else:
-        with pytest.raises(ValueError, match=r"the kernel takes (T and W|D)"):
-            k2.check_kernel_shape(T, Wq, D)
+        with pytest.raises(ValueError, match=r"the kernel takes T|not divisible"):
+            k2.check_kernel_shape(T, Wq, D, H)

@@ -39,7 +39,7 @@ from hual_tpu_torch.config import Config, resolve_device  # noqa: E402
 from hual_tpu_torch.data.datasets import gen_or_load_dataset as port_dataset  # noqa: E402
 from hual_tpu_torch.data.features import FeatureStore  # noqa: E402
 from hual_tpu_torch.runtime import trainer as trainer_module  # noqa: E402
-from hual_tpu_torch.runtime.trainer import Trainer, check_fused_shape  # noqa: E402
+from hual_tpu_torch.runtime.trainer import Trainer  # noqa: E402
 from torch_threads import one_torch_thread  # noqa: E402,F401  (a fixture)
 
 LOGGER = logging.getLogger("test_torch_trainer")
@@ -252,30 +252,29 @@ def test_trainer_needs_a_card_unless_cpu(world, monkeypatch):
 
 
 @pytest.mark.parametrize("max_vlen,dim", [(128, 16), (8, 132)])
-def test_fused_shape_past_k2s_limit(world, monkeypatch, max_vlen, dim):
-    """K2 on the card takes T and W up to 100 and D a multiple of 4 up to
-    128.  Past that, a fused Trainer on ``cuda`` raises when it is built:
-    the check itself, and the constructor, which raises it before the
-    model, the word vectors or the table reach the device (this CPU build
-    of torch has no CUDA, so anything put there would fail otherwise).  The
-    CPU Trainer at that shape is built and sweeps: the plain version, as
-    the Pallas kernel, has no limit."""
+def test_fused_trainer_past_k2s_old_limit(world, max_vlen, dim):
+    """K2 on the card took T and W up to 100 and D a multiple of 4 up to 128
+    until its stages tiled, and a fused Trainer on ``cuda`` checked that
+    limit when it was built.  Now nothing refuses one at such a shape: the
+    check is gone, and the fused Trainer's test sweep (K2's plain version
+    on the CPU, as on the card past the old limit) gives the R@1 and mIoU
+    of the flax backend's on the same weights."""
+    assert not hasattr(trainer_module, "check_fused_shape")
     root = world[0]
-    cfg = Config.from_dict(_config(root, sweep_backend="fused"))
-    cfg.model.max_vlen, cfg.model.dim = max_vlen, dim
-    want = f"T={max_vlen}, W={max_vlen}" if max_vlen > 100 else f"D={dim}"
-    with pytest.raises(ValueError, match=want):
-        check_fused_shape(cfg, torch.device("cuda"))
-    check_fused_shape(cfg, torch.device("cpu"))
-    dataset = port_dataset(cfg)
-    store = FeatureStore.from_dir(cfg.paths.feature_path, max_vlen)
-    monkeypatch.setattr(trainer_module, "resolve_device", torch.device)
-    monkeypatch.setattr(trainer_module, "apply_matmul_precision", lambda name: None)
-    with pytest.raises(ValueError, match=want):
-        Trainer(cfg, dataset, store, logger=LOGGER, device="cuda")
-    tr = Trainer(cfg, dataset, store, logger=LOGGER, device="cpu")
-    assert tr._fused and tr.word_vectors.device.type == "cpu"
-    tr.init_state()
-    metrics = tr.test()
-    assert all(np.isfinite(v) for v in metrics.values()), metrics
-    tr.close()
+    metrics, state = {}, None
+    for backend in ("flax", "fused"):
+        cfg = Config.from_dict(_config(root, sweep_backend=backend))
+        cfg.model.max_vlen, cfg.model.dim = max_vlen, dim
+        dataset = port_dataset(cfg)
+        store = FeatureStore.from_dir(cfg.paths.feature_path, max_vlen)
+        tr = Trainer(cfg, dataset, store, logger=LOGGER, device="cpu")
+        assert tr._fused == (backend == "fused")
+        tr.init_state()
+        if state is None:
+            state = {k: v.clone() for k, v in tr.model.state_dict().items()}
+        else:
+            tr.model.load_state_dict(state)
+        metrics[backend] = tr.test()
+        assert all(np.isfinite(v) for v in metrics[backend].values()), metrics
+        tr.close()
+    assert metrics["fused"] == metrics["flax"]

@@ -20,8 +20,9 @@ checks that it consumed every slab of the schedule.
 What it cannot show: timing, the compiler's register allocation and
 spills, anything of the memory model beyond barrier order.
 
-    python3 tools/torch_k2_emulate.py [B,T,W,D,H,L[,bf16[,seed]]] ...
+    python3 tools/torch_k2_emulate.py [--general] [B,T,W,D,H,L[,bf16[,seed]]] ...
 
+(``--general``: the general kernel, every route; else the resident one)
 prints, per shape, the largest error of each output against the plain
 version (``forward_math``) in f64 and with the path's own rounding, and
 the statistic S (rms distance from f64 over the plain bf16 version's).
@@ -371,17 +372,30 @@ def _replace_body(src: str, name: str, body: str) -> str:
     return src[:i] + "{\n  " + body + "\n}" + src[j + 1:]
 
 
-def emulated_source(src: str) -> str:
+SMEM_LIMIT = "constexpr long kSmemLimit = 232448;"
+
+
+def emulated_source(src: str, smem_limit: int | None = None, general: bool = False) -> str:
     """The kernel's source with the PTX helpers' bodies emulated, the
-    launch a loop over blocks and a check of the ring's slabs."""
+    launch a loop over blocks and a check of the ring's slabs; ``general``
+    builds the general kernel (every route: ``csrc/fused_forward_general.cu``),
+    else the resident one; with ``smem_limit`` the kernel's shared-memory
+    budget (kSmemLimit) is that many bytes, so that its tiled routes open at
+    shapes the emulator can afford."""
+    if general:
+        src = "#define K2_GENERAL 1\n" + src
+    if smem_limit is not None:
+        if SMEM_LIMIT not in src:
+            raise SystemExit(f"torch_k2_emulate: text not in the source: {SMEM_LIMIT!r}")
+        src = src.replace(SMEM_LIMIT, f"constexpr long kSmemLimit = {int(smem_limit)};")
     for name, body in BODIES.items():
         src = _replace_body(src, name, body)
     src = src.replace("#include <cuda_runtime.h>",
                       '#include <cuda_runtime.h>\n#include "emu_ptx.h"', 1)
     edits = [("  extern __shared__ __align__(16) float smem[];",
               "  float* smem = reinterpret_cast<float*>(emu_smem());"),
-             ("  fused_forward_kernel<kBf16><<<B, kThreads, smem, stream>>>(p);",
-              "  emu_launch(B, kThreads, smem, [&] { fused_forward_kernel<kBf16>(p); });"),
+             ("  fused_forward_kernel<kBf16, kGen><<<B, kThreads, smem, stream>>>(p);",
+              "  emu_launch(B, kThreads, smem, [&] { fused_forward_kernel<kBf16, kGen>(p); });"),
              ("                 p.end_logits + static_cast<long>(b) * T);\n}",
               "                 p.end_logits + static_cast<long>(b) * T);\n"
               "  if constexpr (kBf16)\n"
@@ -400,11 +414,13 @@ def emulated_source(src: str) -> str:
     return src
 
 
-def build(out_dir: str = OUT, src_path: str = SRC) -> str:
-    """Compile the emulated source with g++ into ``out_dir`` (once per
-    source: processes that ask at the same time wait on a lock there for
-    the first one's build); returns the library's path."""
-    src = emulated_source(open(src_path).read())
+def build(out_dir: str = OUT, src_path: str = SRC, smem_limit: int | None = None,
+          general: bool = False) -> str:
+    """Compile the emulated source (see :func:`emulated_source`) with g++
+    into ``out_dir`` (once per source: processes that ask at the same time
+    wait on a lock there for the first one's build); returns the library's
+    path."""
+    src = emulated_source(open(src_path).read(), smem_limit, general)
     digest = hashlib.sha256((src + RUNTIME_H + PTX_H).encode()).hexdigest()[:16]
     os.makedirs(out_dir, exist_ok=True)
     lib = os.path.join(out_dir, f"libk2_emulated-{digest}.so")
@@ -435,7 +451,23 @@ def load(path: str) -> ctypes.CDLL:
                                        + [ctypes.c_void_p] * 8 + tail)
     lib.fused_forward_workspace_floats.restype = ctypes.c_longlong
     lib.fused_forward_workspace_floats.argtypes = [ctypes.c_int] * 4
+    lib.fused_forward_takes.argtypes = [ctypes.c_int] * 5
+    lib.fused_forward_takes.restype = ctypes.c_int
+    lib.fused_forward_routes.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.fused_forward_routes.restype = None
     return lib
+
+
+ROUTE_KEYS = ("f64_attention", "f64_heads", "f64_masks_smem", "bf16_heads",
+              "bf16_cq_tile", "bf16_masks_smem")
+
+
+def routes(lib, T: int, W: int, D: int, H: int) -> dict:
+    """The routes the library's kernel takes at this shape
+    (``fused_forward_routes``)."""
+    out = (ctypes.c_int * len(ROUTE_KEYS))()
+    lib.fused_forward_routes(T, W, D, H, out)
+    return dict(zip(ROUTE_KEYS, out))
 
 
 def call(lib, packed: PackedWeights, vf, qf, v_mask, q_mask, *, num_heads: int,
@@ -502,7 +534,9 @@ def compare(lib, B, T, W, D, H, L, mxu_bf16: bool, seed: int = 0) -> dict:
 
 
 def main(argv: list[str]) -> None:
-    lib = load(build())
+    general = argv[:1] == ["--general"]
+    argv = argv[1:] if general else argv
+    lib = load(build(general=general))
     for arg in argv or ["2,17,5,32,4,1,1", "2,17,5,32,4,1,0"]:
         v = [int(a) for a in arg.split(",")]
         shape, bf16, seed = v[:6], bool(v[6]) if len(v) > 6 else True, v[7] if len(v) > 7 else 0

@@ -50,7 +50,7 @@ OUT = os.path.join(ROOT, "build", "k2_probe")
 KW = dict(attn_layer=2, num_heads=8, tau=0.3, use_gumbel=False)
 
 _UNROLL = "#pragma unroll 2\n          for (int kk = 0; kk < steps; ++kk) {"
-_HEADS = "      if (H % heads == 0 && floats() * 4 <= kSmemLimit) break;"
+_HEADS = "      if (H % heads == 0 && floats() <= limit) return;"
 # name -> [(text in the source, replacement)]
 VARIANTS = {
     "as_is": [],
@@ -206,7 +206,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
   const long long t0 = clock64();
   for (int r = 0; r < reps; ++r) {
-    dense(a, 128, M, 128, 128, Dense{Wt, nullptr}, x,
+    dense<false, false>(a, 128, M, 128, 128, Dense{Wt, nullptr}, x,
           [=](int m, int n, float v, float) { y[m * 128 + n] = v; });
     __syncthreads();
   }
