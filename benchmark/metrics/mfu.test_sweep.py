@@ -1,0 +1,8 @@
+"""The test sweep's share of the f32 peak: one reference forward of every
+valid row at the padded widths, over a call's mean seconds, in percent."""
+
+from benchmark import readers
+
+
+def read(facts: dict):
+    return readers.sweep_mfu(facts, passes=1)
